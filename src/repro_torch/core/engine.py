@@ -1,0 +1,173 @@
+"""EULER-ADAS neural compute engine on torch tensors.
+
+Counterpart of ``repro.core.engine``: ``EulerConfig`` (posit width/es,
+regime bound, ILM stages n, truncation m, SIMD mode, framework knobs) and
+``euler_dot_general``, the drop-in for ``lax.dot_general`` with JAX's
+dimension-number convention.  Modes ported: ``exact``, ``posit``,
+``euler`` and ``quant_only``.
+
+Gradients are straight-through: the forward sees the approximate value,
+``x + (approx - x).detach()``; the rem plane carries no gradient.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from . import logmult as LM
+from . import posit as P
+
+# (n_low, n_high, m_low, m_high) per width — Section II-B.3
+_KNOBS = {8: (2, 3, 4, 5), 16: (4, 6, 8, 10), 32: (8, 12, 16, 20)}
+_RBOUND = {8: 2, 16: 3, 32: 5}
+
+VARIANT_NAMES = ("L-1", "L-2", "L-21", "L-22", "L-1b", "L-2b", "L-21b", "L-22b")
+
+
+@dataclasses.dataclass(frozen=True)
+class EulerConfig:
+    """Full operating-point description of the EULER-ADAS NCE."""
+
+    width: int = 16                  # posit word width: 8 | 16 | 32
+    bounded: bool = True             # B-Posit regime bound (R per _RBOUND)
+    stages: int = 6                  # ILM stage count n
+    trunc: int | None = 10           # truncation width m (None = no truncation)
+    mode: str = "euler"              # exact|posit|euler|quant_only
+    simd: str = "scalar"             # scalar | 8_16 | 8_16_32
+    out_quant: bool = False          # re-encode accumulator output to posit
+    accum: str = "f32"               # f32 (kahan is not ported)
+    fuse_planes: bool = False        # one concat-K dot instead of two
+    pre_scale: bool = True           # per-tensor power-of-2 scaling
+    dtype: Any = torch.float32
+
+    @property
+    def posit(self) -> P.PositConfig:
+        es = {8: 0, 16: 1, 32: 2}[self.width]
+        r = _RBOUND[self.width] if self.bounded else None
+        return P.PositConfig(self.width, es, r)
+
+    @property
+    def sublane(self) -> int | None:
+        """SIMD shared-datapath sub-lane width (models Table I SIMD rows)."""
+        if self.simd == "scalar" or self.width == 8:
+            return None
+        return 8
+
+    @property
+    def variant(self) -> str:
+        n_lo, n_hi, m_lo, m_hi = _KNOBS[self.width]
+        base = {(n_lo, None): "L-1", (n_hi, None): "L-2",
+                (n_hi, m_lo): "L-21", (n_hi, m_hi): "L-22"}.get(
+                    (self.stages, self.trunc), f"L-n{self.stages}m{self.trunc}")
+        return base + ("b" if self.bounded else "")
+
+    def replace(self, **kw) -> "EulerConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def from_variant(width: int, variant: str, **kw) -> EulerConfig:
+    """Build an EulerConfig from a paper variant name like ``L-21b``."""
+    bounded = variant.endswith("b")
+    v = variant[:-1] if bounded else variant
+    n_lo, n_hi, m_lo, m_hi = _KNOBS[width]
+    table = {"L-1": (n_lo, None), "L-2": (n_hi, None),
+             "L-21": (n_hi, m_lo), "L-22": (n_hi, m_hi)}
+    if v not in table:
+        raise ValueError(f"unknown variant {variant}")
+    n, m = table[v]
+    return EulerConfig(width=width, bounded=bounded, stages=n, trunc=m, **kw)
+
+
+EXACT = EulerConfig(mode="exact")
+
+
+# --------------------------------------------------------------------------
+# dot_general with JAX's dimension numbers
+# --------------------------------------------------------------------------
+
+def dot_general(a: torch.Tensor, b: torch.Tensor, dimension_numbers,
+                out_dtype=torch.float32) -> torch.Tensor:
+    """``lax.dot_general`` in torch, accumulated in float32.
+
+    Output layout follows lax: batch dims, then a's free dims, then b's
+    free dims.  Operands are upcast to float32 first (bf16 products are
+    exact there, which is what ``preferred_element_type=f32`` gives)."""
+    (lc, rc), (lb, rb) = dimension_numbers
+    lc, rc, lb, rb = tuple(lc), tuple(rc), tuple(lb), tuple(rb)
+    a_free = [d for d in range(a.ndim) if d not in lc and d not in lb]
+    b_free = [d for d in range(b.ndim) if d not in rc and d not in rb]
+    batch_shape = [a.shape[d] for d in lb]
+    a_free_shape = [a.shape[d] for d in a_free]
+    b_free_shape = [b.shape[d] for d in b_free]
+    nb, M, N = (math.prod(batch_shape), math.prod(a_free_shape),
+                math.prod(b_free_shape))
+    K = math.prod(a.shape[d] for d in lc)
+    a2 = a.permute(*lb, *a_free, *lc).reshape(nb, M, K).to(torch.float32)
+    b2 = b.permute(*rb, *rc, *b_free).reshape(nb, K, N).to(torch.float32)
+    out = torch.bmm(a2, b2)
+    return out.reshape(*batch_shape, *a_free_shape, *b_free_shape).to(out_dtype)
+
+
+# --------------------------------------------------------------------------
+# Plane construction with straight-through gradients
+# --------------------------------------------------------------------------
+
+def _ste(approx, x):
+    """Forward ``approx``, backward identity w.r.t. ``x``."""
+    return x + (approx - x).detach()
+
+
+def _pow2_scale(x):
+    """Per-tensor power-of-2 scale centering the log-magnitude mass at 1
+    (the hardware's per-layer exponent bias)."""
+    ax = x.to(torch.float32).abs()
+    nz = ax > 0
+    lg = torch.where(nz, torch.log2(torch.clamp(ax, min=1e-38)),
+                     torch.zeros((), device=ax.device))
+    mean_lg = lg.sum() / torch.clamp(nz.sum(), min=1).to(torch.float32)
+    s = torch.exp2(torch.round(mean_lg))
+    return torch.clamp(s, min=1e-30).detach()
+
+
+def operand_planes(x, cfg: EulerConfig):
+    """(val, rem) planes for one operand under ``cfg`` (STE gradients)."""
+    if cfg.mode == "exact":
+        return x.to(cfg.dtype), None
+    pc = cfg.posit
+    s = (_pow2_scale(x) if cfg.pre_scale
+         else torch.ones((), dtype=torch.float32, device=x.device))
+    xs = x.to(torch.float32) / s
+    if cfg.mode in ("posit", "quant_only"):
+        q = P.quantize(xs, pc) * s
+        return _ste(q, x).to(cfg.dtype), None
+    if cfg.mode == "euler":
+        val, rem = LM.ilm_planes_from_float(
+            xs, pc, cfg.stages, cfg.trunc, cfg.sublane)
+        return (_ste(val * s, x).to(cfg.dtype),
+                (rem * s).detach().to(cfg.dtype))
+    raise ValueError(f"unknown mode {cfg.mode}")
+
+
+def euler_dot_general(a, b, dimension_numbers, cfg: EulerConfig):
+    """Drop-in ``lax.dot_general`` under EULER-ADAS numerics: f32
+    accumulation inside the dot, result stored at ``cfg.dtype``."""
+    va, ra = operand_planes(a, cfg)
+    vb, rb = operand_planes(b, cfg)
+    (lc, rc), _ = dimension_numbers
+    if (ra is not None and rb is not None and cfg.fuse_planes
+            and len(lc) == 1):
+        va2 = torch.cat([va, ra], dim=lc[0])
+        vb2 = torch.cat([vb, -rb], dim=rc[0])
+        out = dot_general(va2, vb2, dimension_numbers)
+    else:
+        out = dot_general(va, vb, dimension_numbers)
+        if ra is not None and rb is not None:
+            out = out - dot_general(ra, rb, dimension_numbers)
+    if cfg.out_quant and cfg.mode != "exact":
+        out = _ste(P.quantize(out.to(torch.float32), cfg.posit),
+                   out).to(out.dtype)
+    return out.to(torch.promote_types(va.dtype, vb.dtype))
+

@@ -1,0 +1,122 @@
+"""Build and load the CUDA kernels (nvcc -> shared library -> ctypes).
+
+Each ``csrc/*.cu`` source is compiled on first use into its own shared
+library with a plain C interface under ``build/repro_torch_kernels/`` at the
+repository root.  The
+library name carries a hash of the sources, so an edited kernel is rebuilt
+and a stale one is never loaded.  :func:`build_all` starts one ``nvcc`` per
+source, all together, and waits for them.
+
+Flags: ``-gencode arch=compute_90a,code=sm_90a -O3``; no
+``--use_fast_math`` (it changes expf, tanhf, division and denormals).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("posit_encode", "logmac", "paged_decode")
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# REPRO_TORCH_NVCC_VERBOSE=1 adds -Xptxas -v and prints each kernel's
+# registers, shared memory and spills
+_VERBOSE = os.environ.get("REPRO_TORCH_NVCC_VERBOSE") == "1"
+if _VERBOSE:
+    _NVCC_FLAGS = _NVCC_FLAGS + ["-Xptxas", "-v"]
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(f.read_bytes())
+    h.update(" ".join(_NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}_{h.hexdigest()[:12]}.so"
+
+
+def build_all(names=SOURCES) -> dict[str, float]:
+    """Compile every missing library in parallel; returns seconds per
+    source built by this call."""
+    todo = [n for n in names if not _lib_path(n).exists()]
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    t0 = time.perf_counter()
+    for n in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [nvcc, *_NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+               str(CSRC / f"{n}.cu")]
+        procs.append((n, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    errors = []
+    took = {}
+    for n, tmp, proc in procs:
+        log, _ = proc.communicate()
+        took[n] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            errors.append(f"{n}.cu:\n{log.decode(errors='replace')}")
+        else:
+            if _VERBOSE:
+                print(f"[nvcc {n}.cu]\n{log.decode(errors='replace')}",
+                      flush=True)
+            os.replace(tmp, _lib_path(n))
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    return took
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (built on first use)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        if not _lib_path(name).exists():
+            build_all()
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch function."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")
+
+
+# Launch counts: each wrapper adds one where it launches its kernel, and
+# nowhere else (a plain-version call on a CPU tensor does not count).
+LAUNCHES = {"posit_encode": 0, "logmac": 0, "paged_flash_decode": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def stream_ptr(t) -> int:
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,161 @@
+// Device-side posit arithmetic shared by the EULER-ADAS CUDA kernels.
+//
+// Line-for-line counterparts of the JAX kernel bodies:
+//   encode_f32     <- repro/kernels/posit_codec.py  encode_body
+//   decode_planes  <- repro/kernels/logmac.py       decode_planes_raw
+//
+// Every shift is kept inside [0, 31] (a 32-bit shift by >= 32 is undefined
+// in C++; the JAX code clips the same way), negative numbers are never
+// shifted, and powers of two are built as two exponent-field factors so
+// results below 2^-126 agree with the reference.  Build without
+// --use_fast_math: expf/tanhf/division/denormals must stay IEEE.
+#pragma once
+#include <stdint.h>
+
+namespace euler {
+
+// A posit format: N-bit words, es exponent bits, regime bound R (0 = none).
+struct Posit {
+  int N, es, R;
+  __device__ __forceinline__ int rcap() const { return R ? R : N - 1; }
+  __device__ __forceinline__ int kmax() const { return R ? R - 1 : N - 2; }
+  __device__ __forceinline__ int kmin() const { return R ? -R : -(N - 2); }
+  __device__ __forceinline__ int max_scale() const {
+    return R ? kmax() * (1 << es) + (1 << es) - 1 : kmax() * (1 << es);
+  }
+  __device__ __forceinline__ int min_scale() const { return kmin() * (1 << es); }
+  __device__ __forceinline__ int W() const { return N - 1 - es; }
+};
+
+// ILM plane knobs: stages n, effective truncation m (-1 = none; the SIMD
+// sub-lane cap is folded in on the host).
+struct Planes {
+  int stages, m;
+};
+
+__device__ __forceinline__ uint32_t mask32(int n) {
+  return n >= 32 ? 0xFFFFFFFFu : ((1u << n) - 1u);
+}
+
+__device__ __forceinline__ int floor_div_pow2(int x, int sh) {
+  // floor(x / 2^sh) without shifting a negative number
+  int d = 1 << sh;
+  int q = x / d;
+  return (x % d != 0 && x < 0) ? q - 1 : q;
+}
+
+__device__ __forceinline__ float exp2i(int e) {
+  e = e < -126 ? -126 : (e > 127 ? 127 : e);
+  return __uint_as_float((uint32_t)(e + 127) << 23);
+}
+
+__device__ __forceinline__ float pow2(int e) {
+  int h1 = floor_div_pow2(e, 1);
+  return exp2i(h1) * exp2i(e - h1);
+}
+
+// f32 -> posit pattern (low N bits), pattern-domain RNE with 26 guard bits.
+__device__ __forceinline__ uint32_t encode_f32(float x, Posit pc) {
+  const int G = 26;
+  const int N = pc.N, es = pc.es;
+  uint32_t bits = __float_as_uint(x);
+  uint32_t sign = bits >> 31;
+  int expf_ = (int)((bits >> 23) & 0xFFu);
+  uint32_t frac23 = bits & mask32(23);
+  bool is_zero = expf_ == 0;      // zero and subnormals (DAZ)
+  bool is_nar = expf_ == 255;     // Inf/NaN -> NaR
+  int scale = expf_ - 127;
+
+  bool over = scale > pc.max_scale();
+  bool under = scale < pc.min_scale();
+  int scale_c = scale < pc.min_scale() ? pc.min_scale()
+              : (scale > pc.max_scale() ? pc.max_scale() : scale);
+  uint32_t frac_g = (over || under) ? 0u : (frac23 << (G - 23));
+
+  int k = floor_div_pow2(scale_c, es);
+  int e = scale_c - k * (1 << es);
+  int kmax = pc.kmax(), kmin = pc.kmin(), rcap = pc.rcap();
+  bool pos = k >= 0, at_hi = k == kmax, at_lo = k == kmin;
+  int w;
+  uint32_t rb;
+  if (pc.R) {
+    w = pos ? (at_hi ? rcap : k + 2) : (at_lo ? rcap : -k + 1);
+    rb = pos ? (at_hi ? mask32(rcap) : ((1u << (k + 1)) - 1u) << 1)
+             : (at_lo ? 0u : 1u);
+  } else {
+    w = pos ? (at_hi ? N - 1 : k + 2) : -k + 1;
+    rb = pos ? (at_hi ? mask32(N - 1) : ((1u << (k + 1)) - 1u) << 1) : 1u;
+  }
+  uint32_t T = ((uint32_t)e << G) | frac_g;
+  int t = (N - 1) - w;
+  int sh = es + G - t;
+  uint32_t T_r;
+  if (sh > 0) {
+    int s = sh > 31 ? 31 : sh;
+    uint32_t half = (1u << (s - 1)) - 1u;
+    uint32_t lsb = (T >> s) & 1u;
+    T_r = (T + half + lsb) >> s;
+  } else {
+    int s = -sh > 31 ? 31 : -sh;
+    T_r = T << s;
+  }
+  uint32_t body = (rb << (t > 0 ? t : 0)) + T_r;
+  uint32_t maxbody = mask32(N - 1);
+  body = body < 1u ? 1u : (body > maxbody ? maxbody : body);
+  if (over) body = maxbody;
+  if (under) body = 1u;
+  uint32_t pat = sign ? ((0u - body) & mask32(N)) : body;
+  if (is_zero) pat = 0u;
+  if (is_nar) pat = 1u << (N - 1);
+  return pat;
+}
+
+// posit pattern -> (val, rem) f32 ILM planes.
+__device__ __forceinline__ void decode_planes(uint32_t pat, Posit pc, Planes pl,
+                                              float* val, float* rem) {
+  const int N = pc.N, es = pc.es, W = pc.W(), rcap = pc.rcap();
+  uint32_t p = pat & mask32(N);
+  uint32_t sign = (p >> (N - 1)) & 1u;
+  uint32_t body = sign ? ((0u - p) & mask32(N - 1)) : (p & mask32(N - 1));
+  bool special = (p == 0u) || (p == (1u << (N - 1)));
+
+  uint32_t r0 = (body >> (N - 2)) & 1u;
+  // fixed-depth regime scan: rcap iterations (the constant-depth decoder)
+  int run = 0;
+  bool cont = true;
+  for (int j = 0; j < rcap; ++j) {
+    uint32_t bit = (body >> (N - 2 - j)) & 1u;
+    cont = cont && (bit == r0);
+    run += cont ? 1 : 0;
+  }
+  bool sat = run >= rcap;
+  int rw = sat ? rcap : run + 1;
+  int k = r0 ? run - 1 : -run;
+
+  uint32_t rem_bits = (body << rw) & mask32(N - 1);
+  int e = 0;
+  uint32_t frac = rem_bits;
+  if (es > 0) {
+    e = (int)(rem_bits >> (N - 1 - es));
+    frac = rem_bits & mask32(N - 1 - es);
+  }
+  int scale = k * (1 << es) + e;
+
+  if (pl.m >= 0 && pl.m < W) {
+    int drop = W - pl.m;
+    frac = (frac >> drop) << drop;
+  }
+  uint32_t mant = (1u << W) | frac;
+  uint32_t rmant = mant;
+  for (int s = 0; s < pl.stages; ++s) {
+    if (rmant) rmant &= ~(1u << (31 - __clz(rmant)));
+  }
+  float sgn = sign ? -1.0f : 1.0f;
+  float unit = sgn * pow2(scale - W);
+  float v = unit * (float)mant;
+  float r = unit * (float)rmant;
+  *val = special ? 0.0f : v;
+  *rem = special ? 0.0f : r;
+}
+
+}  // namespace euler

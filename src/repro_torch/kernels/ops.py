@@ -1,0 +1,33 @@
+"""Public wrappers for the kernels.
+
+``euler_matmul_fused(x, w, ecfg)`` is the end-to-end fused path: f32
+inputs are posit-encoded (encode kernel) and multiplied through the logmac
+kernel into the f32 quire value — the EULER-ADAS NCE in three launches.
+Each wrapper dispatches on its tensors' device: CPU tensors run the plain
+versions, CUDA tensors the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.engine import EulerConfig
+from . import logmac as _logmac
+from . import posit_codec as _codec
+
+
+def encode(x: torch.Tensor, pc) -> torch.Tensor:
+    return _codec.posit_encode(x, pc)
+
+
+def logmac_matmul(a_pat: torch.Tensor, b_pat: torch.Tensor,
+                  ecfg: EulerConfig) -> torch.Tensor:
+    return _logmac.logmac(a_pat, b_pat, ecfg)
+
+
+def euler_matmul_fused(x: torch.Tensor, w: torch.Tensor,
+                       ecfg: EulerConfig) -> torch.Tensor:
+    """f32 (M,K) @ (K,N) through the kernelized EULER-ADAS pipeline."""
+    pc = ecfg.posit
+    a_pat = encode(x.to(torch.float32).contiguous(), pc)
+    b_pat = encode(w.to(torch.float32).contiguous(), pc)
+    return logmac_matmul(a_pat, b_pat, ecfg)

@@ -1,0 +1,6 @@
+"""Model zoo of the port: the dense decoder family with EULER-ADAS numerics
+on every matmul."""
+from .config import ModelConfig
+from .transformer import Model, params_from_jax
+
+__all__ = ["ModelConfig", "Model", "params_from_jax"]

@@ -1,0 +1,368 @@
+"""Composable layers of the dense family.  Every matmul routes through
+``repro_torch.numerics``.
+
+Counterpart of ``repro.models.layers`` (dense parts): functional style,
+``*_apply(params, x, ctx)`` on dicts of tensors.  Attention traces under
+the ``attn`` scope and MLPs under ``mlp``, so a ``PrecisionPolicy`` rule
+like ``("*attn*", P8)`` hits exactly the attention ops.  Norms, softmax,
+RoPE and elementwise nonlinearities run in exact f32; the casts between
+the compute dtype and f32 mirror the reference.
+
+KV caches are updated in place (the reference returns new arrays): a
+layer's cache is a view into the model's ``[L, ...]`` stack, and
+``attention_apply`` writes its new K/V words into it before attending.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import numerics as N
+from repro_torch.core import posit as _P
+from repro_torch.core.engine import EulerConfig
+from repro_torch.numerics import NumericsContext
+
+_NEG = -1e30
+
+
+def cache_encode(x, cache_dtype, pc=None):
+    """Write-side KV-cache codec: integer caches store posit words in the
+    storage width's format, or ``pc`` (the policy format) when its width
+    matches."""
+    pc = _P.storage_pc(cache_dtype, pc)
+    if pc is not None:
+        return _P.to_storage(_P.encode_from_float(x, pc), pc)
+    return x.to(cache_dtype)
+
+
+def cache_decode(x, out_dtype=torch.bfloat16, pc=None):
+    pc = _P.storage_pc(x.dtype, pc)
+    if pc is not None:
+        return _P.decode_to_float(_P.from_storage(x, pc), pc, out_dtype)
+    return x
+
+
+def cache_policy_pc(ctx, cache_dtype):
+    """The posit format a KV cache of ``cache_dtype`` stores under the
+    active policy: the qk operand format when its width matches the
+    storage width, else the standard posit of that width; ``None`` for
+    float caches.  Resolved under the ``attn`` scope."""
+    cfg_qk = N.resolve("qk", ctx=ctx.numerics)
+    pref = cfg_qk.posit if cfg_qk.mode != "exact" else None
+    return _P.storage_pc(cache_dtype, pref)
+
+
+@dataclasses.dataclass
+class Ctx:
+    ecfg: EulerConfig | None = None  # uniform config (promoted to a policy)
+    numerics: NumericsContext | None = None  # policy + backend (wins if set)
+    decode_pos: Any = None           # decode position: int or [B] tensor
+    page_table: Any = None           # [B, n_logical] int32 physical page ids
+                                     # — presence selects paged decode
+    decode_write: Any = None         # [B] bool write mask for paged decode
+                                     # (False rows write the trash page)
+
+    def __post_init__(self):
+        if self.numerics is None:
+            self.numerics = NumericsContext.from_ecfg(
+                self.ecfg if self.ecfg is not None
+                else EulerConfig(mode="exact"))
+        if self.ecfg is None:
+            self.ecfg = self.numerics.policy.default
+
+
+def dot(a, b, ctx: Ctx, dn=None, op: str = "matmul"):
+    """Policy-resolved dot_general; default contracts a's last with b's
+    first dim (op kind "matmul")."""
+    if dn is None:
+        dn = (((a.ndim - 1,), (0,)), ((), ()))
+    return N.dot_general(a, b, dn, ctx.numerics, op=op)
+
+
+# --------------------------------------------------------------------------
+# Primitives
+# --------------------------------------------------------------------------
+
+def dense_init(gen, d_in: int, d_out: int, device, scale: float | None = None):
+    scale = scale if scale is not None else d_in ** -0.5
+    w = torch.randn((d_in, d_out), generator=gen, device=device,
+                    dtype=torch.float32)
+    return {"w": w.mul_(scale)}
+
+
+def dense_apply(p, x, ctx: Ctx):
+    return dot(x, p["w"], ctx)
+
+
+def rmsnorm_init(d: int, device):
+    return {"g": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+def rmsnorm_apply(p, x, eps: float = 1e-6):
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, -1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * p["g"]).to(x.dtype)
+
+
+def embed_init(gen, vocab_p: int, d: int, device):
+    e = torch.randn((vocab_p, d), generator=gen, device=device,
+                    dtype=torch.float32)
+    return {"e": e.mul_(0.02)}
+
+
+def embed_apply(p, ids):
+    return p["e"][ids.to(torch.long)]
+
+
+def rope(x, positions, theta: float):
+    """Rotary embedding on the last dim of x: [..., T, H, hd]."""
+    hd = x.shape[-1]
+    half = hd // 2
+    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32))
+    freqs = torch.exp(-log_theta * torch.arange(half, dtype=torch.float32)
+                      / half).to(x.device)
+    ang = positions.to(torch.float32)[..., None] * freqs  # [..., T, half]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     -1).to(x.dtype)
+
+
+def _softcap(x, cap):
+    return cap * torch.tanh(x / cap) if cap else x
+
+
+# --------------------------------------------------------------------------
+# Attention (GQA, optional sliding window, softcaps, chunked-flash softmax)
+# --------------------------------------------------------------------------
+
+def attention_init(gen, cfg, device):
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": dense_init(gen, d, H * hd, device),
+        "wk": dense_init(gen, d, KV * hd, device),
+        "wv": dense_init(gen, d, KV * hd, device),
+        "wo": dense_init(gen, H * hd, d, device),
+    }
+    if cfg.qk_norm:
+        p["qn"] = rmsnorm_init(cfg.head_dim, device)
+        p["kn"] = rmsnorm_init(cfg.head_dim, device)
+    return p
+
+
+def _attn_scores(q, k, ctx: Ctx, softcap):
+    # q: [B, T, H, hd], k: [B, S, KV, hd] (grouped) -> [B, KV, T, group, S]
+    B, T, H, hd = q.shape
+    KV = k.shape[2]
+    group = H // KV
+    qg = q.reshape(B, T, KV, group, hd)
+    dn = (((4,), (3,)), ((0, 2), (0, 2)))  # contract hd; batch B, KV
+    s = N.dot_general(qg, k, dn, ctx.numerics, op="qk")
+    s = s * (hd ** -0.5)
+    return _softcap(s.to(torch.float32), softcap)
+
+
+def _attn_values(p, v, ctx: Ctx):
+    # p: [B, KV, T, group, S], v: [B, S, KV, hd] -> [B, T, KV*group*hd]
+    dn = (((4,), (1,)), ((0, 1), (0, 2)))
+    o = N.dot_general(p, v, dn, ctx.numerics, op="pv")  # [B,KV,T,group,hd]
+    B, KV, T, group, hd = o.shape
+    return o.movedim(1, 2).reshape(B, T, KV * group * hd)
+
+
+def window_ok(t_pos, s_pos, window):
+    """Sliding-window part of the mask (``window`` None or < 0: global)."""
+    if window is None or window < 0:
+        return torch.ones((), dtype=torch.bool, device=s_pos.device)
+    return s_pos > (t_pos - window)
+
+
+def causal_window_mask(t_pos, s_pos, window):
+    """Causal + sliding-window mask [T, S]."""
+    m = s_pos[None, :] <= t_pos[:, None]
+    return m & window_ok(t_pos[:, None], s_pos[None, :], window)
+
+
+def _maybe_qk_norm(p, q, k):
+    if "qn" in p:
+        q = rmsnorm_apply(p["qn"], q)
+        k = rmsnorm_apply(p["kn"], k)
+    return q, k
+
+
+def _decode_positions(ctx: Ctx, B: int, device):
+    pos = torch.as_tensor(ctx.decode_pos, dtype=torch.int32, device=device)
+    return pos.expand(B).contiguous() if pos.ndim == 0 else pos
+
+
+@N.scoped("attn")
+def attention_apply(p, x, ctx: Ctx, cfg, window, positions,
+                    cache=None, q_chunk: int = 1024, kv_chunk: int = 1024):
+    """Full attention layer.
+
+    Modes (from shapes): cache None — forward over x[B, T, d]; cache given
+    and T > 1 — prefill (flash attention + KV slab write); cache given and
+    T == 1 — single-token decode at ``ctx.decode_pos`` (paged when
+    ``ctx.page_table`` is set).  ``window``: int (< 0 = global) or None.
+    """
+    B, T, d = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    q = dense_apply(p["wq"], x, ctx).reshape(B, T, H, hd)
+    k = dense_apply(p["wk"], x, ctx).reshape(B, T, KV, hd)
+    v = dense_apply(p["wv"], x, ctx).reshape(B, T, KV, hd)
+    q, k = _maybe_qk_norm(p, q, k)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    if cache is not None and T == 1 and ctx.page_table is not None:
+        # ---- paged decode ----
+        # The cache is the shared page pool [P, page_size, KV, hd]; this
+        # slot's token goes to the physical page its table names for the
+        # current logical page.  Masked rows and rows whose entry is
+        # unallocated write the TRASH_PAGE sink instead.
+        from repro_torch.kernels.paged_decode import NULL_PAGE, TRASH_PAGE
+        kp, vp = cache["k"], cache["v"]
+        pc = cache_policy_pc(ctx, kp.dtype)
+        pos_b = _decode_positions(ctx, B, x.device)
+        ps_ = kp.shape[1]
+        table = ctx.page_table
+        nlp = table.shape[1]
+        lp = torch.clamp(torch.div(pos_b, ps_, rounding_mode="floor"),
+                         0, nlp - 1).to(torch.long)
+        off = torch.remainder(pos_b, ps_).to(torch.long)
+        phys = table.gather(1, lp[:, None])[:, 0].to(torch.long)
+        phys = torch.where(phys == NULL_PAGE, TRASH_PAGE, phys)
+        if ctx.decode_write is not None:
+            phys = torch.where(ctx.decode_write, phys, TRASH_PAGE)
+        kp[phys, off] = cache_encode(k[:, 0], kp.dtype, pc)
+        vp[phys, off] = cache_encode(v[:, 0], vp.dtype, pc)
+        out = N.decode_attention(q, kp, vp, table, pos_b, ctx.numerics,
+                                 pc=pc, softcap=cfg.attn_softcap,
+                                 window=window)
+        y = dense_apply(p["wo"], out.to(x.dtype), ctx)
+        return y, cache
+
+    if cache is not None and T == 1:
+        # ---- dense decode: every slot at its own position ----
+        ck, cv = cache["k"], cache["v"]
+        pc = cache_policy_pc(ctx, ck.dtype)
+        pos_b = _decode_positions(ctx, B, x.device)
+        rows = torch.arange(B, device=x.device)
+        prow = pos_b.to(torch.long)
+        ck[rows, prow] = cache_encode(k[:, 0], ck.dtype, pc)
+        cv[rows, prow] = cache_encode(v[:, 0], cv.dtype, pc)
+        S = ck.shape[1]
+        s_pos = torch.arange(S, device=x.device)
+        kd = cache_decode(ck, x.dtype, pc)
+        vd = cache_decode(cv, x.dtype, pc)
+        scores = _attn_scores(q, kd, ctx, cfg.attn_softcap)  # [B,KV,1,g,S]
+        valid = s_pos[None, :] <= pos_b[:, None]             # [B, S]
+        valid = valid & window_ok(pos_b[:, None], s_pos[None, :], window)
+        scores = torch.where(valid[:, None, None, None, :], scores,
+                             torch.tensor(_NEG, device=x.device))
+        probs = torch.softmax(scores, dim=-1).to(vd.dtype)
+        out = _attn_values(probs, vd, ctx)
+        y = dense_apply(p["wo"], out.to(x.dtype), ctx)
+        return y, cache
+
+    # ---- forward / prefill: chunked (flash-style) causal attention ----
+    # chunk sizes must divide T: fall back to the largest divisor <= chunk
+    qc = min(q_chunk, T)
+    while T % qc:
+        qc -= 1
+    kc = min(kv_chunk, T)
+    while T % kc:
+        kc -= 1
+    n_q, n_k = T // qc, T // kc
+    group = H // KV
+    dev = x.device
+    neg = torch.tensor(_NEG, device=dev)
+    outs = []
+    for qi in range(n_q):
+        q_i = q[:, qi * qc:(qi + 1) * qc]
+        t_idx = torch.arange(qc, device=dev) + qi * qc
+        m_run = torch.full((B, KV, qc, group), _NEG, dtype=torch.float32,
+                           device=dev)
+        l_run = torch.zeros((B, KV, qc, group), dtype=torch.float32,
+                            device=dev)
+        acc = torch.zeros((B, KV, qc, group, hd), dtype=torch.float32,
+                          device=dev)
+        for ki in range(n_k):
+            k_i = k[:, ki * kc:(ki + 1) * kc]
+            v_i = v[:, ki * kc:(ki + 1) * kc]
+            s = _attn_scores(q_i, k_i, ctx, cfg.attn_softcap)
+            s_idx = torch.arange(kc, device=dev) + ki * kc
+            mask = causal_window_mask(t_idx, s_idx, window)
+            s = torch.where(mask[None, None, :, None, :], s, neg)
+            m_new = torch.maximum(m_run, s.amax(-1))
+            alpha = torch.exp(m_run - m_new)
+            pexp = torch.exp(s - m_new[..., None])
+            l_run = l_run * alpha + pexp.sum(-1)
+            dn = (((4,), (1,)), ((0, 1), (0, 2)))
+            o = N.dot_general(pexp.to(v_i.dtype), v_i, dn, ctx.numerics,
+                              op="pv")
+            acc = acc * alpha[..., None] + o
+            m_run = m_new
+        out = acc / torch.clamp(l_run[..., None], min=1e-30)
+        outs.append(out.movedim(2, 1).reshape(B, qc, H * hd))
+    out = torch.cat(outs, 1) if len(outs) > 1 else outs[0]
+    y = dense_apply(p["wo"], out.to(x.dtype), ctx)
+
+    if cache is not None:  # prefill: write the K/V slab at offset 0
+        pc = cache_policy_pc(ctx, cache["k"].dtype)
+        cache["k"][:, :T] = cache_encode(k, cache["k"].dtype, pc)
+        cache["v"][:, :T] = cache_encode(v, cache["v"].dtype, pc)
+    return y, cache
+
+
+def attention_cache_init(cfg, batch: int, max_len: int, dtype, device):
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_reset(cache, slot=None, batch_axis: int = 0):
+    """Zero a cache dict in place: all of it (``slot=None``) or one batch
+    row.  ``batch_axis`` is 0 for per-layer caches and 1 for the
+    model-level [L, B, ...] stacks.  Zero words are the posit zero."""
+    for a in cache.values():
+        if slot is None:
+            a.zero_()
+        else:
+            a.select(batch_axis, int(slot)).zero_()
+    return cache
+
+
+# --------------------------------------------------------------------------
+# MLP variants
+# --------------------------------------------------------------------------
+
+def mlp_init(gen, cfg, device, d_ff=None):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.mlp in ("silu_gated", "gelu_gated"):
+        return {"wi": dense_init(gen, d, f, device),
+                "wg": dense_init(gen, d, f, device),
+                "wo": dense_init(gen, f, d, device)}
+    return {"wi": dense_init(gen, d, f, device),
+            "wo": dense_init(gen, f, d, device)}
+
+
+@N.scoped("mlp")
+def mlp_apply(p, x, ctx: Ctx, kind: str):
+    h = dense_apply(p["wi"], x, ctx)
+    if kind == "silu_gated":
+        h = F.silu(dense_apply(p["wg"], x, ctx)) * h
+    elif kind == "gelu_gated":
+        h = F.gelu(dense_apply(p["wg"], x, ctx), approximate="tanh") * h
+    elif kind == "relu2":  # squared ReLU (nemotron)
+        r = F.relu(h)
+        h = r * r
+    elif kind == "gelu":
+        h = F.gelu(h, approximate="tanh")
+    else:
+        raise ValueError(kind)
+    return dense_apply(p["wo"], h, ctx)

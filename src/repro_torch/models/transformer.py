@@ -1,0 +1,238 @@
+"""Decoder-only backbone of the dense family, with EULER-ADAS numerics.
+
+Counterpart of ``repro.models.transformer`` for ``family="dense"``: init,
+forward, head, prefill, decode_step, dense and paged caches, per-layer
+local/global windows and gemma2's post-block norms.  Parameters are plain
+dicts of tensors: ``{"embed": {"e"}, "layers": [per-layer dicts],
+"ln_f": {"g"}}``; the reference's ``lax.scan`` over stacked layers is a
+host loop over the list.  :func:`params_from_jax` converts the reference's
+``Model.init`` pytree (as numpy, layers stacked ``[L, ...]``).
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch import numerics as N
+from repro_torch.core import posit as _P
+from repro_torch.core.engine import EulerConfig
+from repro_torch.numerics import NumericsContext
+
+from . import layers as L
+from .config import ModelConfig
+from .layers import Ctx
+
+_FLOAT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype or a name; posit word names
+    ("uint8", "uint16", "uint32") give their storage dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = str(dtype)
+    if name in _P.STORAGE_DTYPES:
+        return _P.STORAGE_DTYPES[name]
+    return _FLOAT_DTYPES[name]
+
+
+class Model:
+    """init / forward / head / prefill / decode_step for one ModelConfig."""
+
+    def __init__(self, cfg: ModelConfig, ecfg: EulerConfig | None = None,
+                 numerics: NumericsContext | None = None,
+                 device: "str | torch.device" = "cuda"):
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet (dense only)")
+        self.cfg = cfg
+        if numerics is None:
+            numerics = NumericsContext.from_ecfg(
+                ecfg or EulerConfig(mode="exact"))
+        self.numerics = numerics
+        self.ecfg = ecfg or numerics.policy.default
+        self.compute_dtype = torch_dtype(cfg.dtype)
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("device 'cuda' requested but no CUDA device "
+                                   "is available; pass device='cpu' to run on "
+                                   "the CPU")
+            if self.device.index is None:
+                self.device = torch.device("cuda", torch.cuda.current_device())
+
+    def make_ctx(self, **kw) -> Ctx:
+        return Ctx(ecfg=self.ecfg, numerics=self.numerics, **kw)
+
+    # ------------------------------------------------------------------
+    # Parameters
+    # ------------------------------------------------------------------
+
+    def _block_init(self, gen):
+        cfg, dev = self.cfg, self.device
+        p = {"ln1": L.rmsnorm_init(cfg.d_model, dev),
+             "attn": L.attention_init(gen, cfg, dev)}
+        if cfg.post_norm:
+            p["pn1"] = L.rmsnorm_init(cfg.d_model, dev)
+        p["ln2"] = L.rmsnorm_init(cfg.d_model, dev)
+        p["mlp"] = L.mlp_init(gen, cfg, dev)
+        if cfg.post_norm:
+            p["pn2"] = L.rmsnorm_init(cfg.d_model, dev)
+        return p
+
+    def init(self, seed: int = 0):
+        """Random parameters with the reference's shapes and init scales,
+        drawn from a ``torch.Generator`` seeded with ``seed`` on the model's
+        device (the numbers differ from the reference's PRNG)."""
+        cfg = self.cfg
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        return {
+            "embed": L.embed_init(gen, cfg.vocab_padded, cfg.d_model,
+                                  self.device),
+            "layers": [self._block_init(gen) for _ in range(cfg.n_layers)],
+            "ln_f": L.rmsnorm_init(cfg.d_model, self.device),
+        }
+
+    @staticmethod
+    def param_count(params) -> int:
+        def count(t):
+            if isinstance(t, dict):
+                return sum(count(v) for v in t.values())
+            if isinstance(t, list):
+                return sum(count(v) for v in t)
+            return t.numel()
+        return count(params)
+
+    def layer_windows(self) -> list[int]:
+        """Per-layer attention window (-1 = global)."""
+        cfg = self.cfg
+        return [cfg.window if (cfg.layer_kind(i) == "local" and cfg.window)
+                else -1 for i in range(cfg.n_layers)]
+
+    # ------------------------------------------------------------------
+    # Forward
+    # ------------------------------------------------------------------
+
+    def _block(self, p, x, ctx: Ctx, window, positions, cache):
+        cfg = self.cfg
+        h, cache = L.attention_apply(p["attn"], L.rmsnorm_apply(p["ln1"], x),
+                                     ctx, cfg, window, positions, cache,
+                                     q_chunk=cfg.q_chunk,
+                                     kv_chunk=cfg.kv_chunk)
+        if cfg.post_norm:
+            h = L.rmsnorm_apply(p["pn1"], h)
+        x = x + h.to(x.dtype)
+        h = L.mlp_apply(p["mlp"], L.rmsnorm_apply(p["ln2"], x), ctx, cfg.mlp)
+        if cfg.post_norm:
+            h = L.rmsnorm_apply(p["pn2"], h)
+        x = x + h.to(x.dtype)
+        return x, cache
+
+    def forward(self, params, inputs, ctx: Ctx, cache=None, positions=None):
+        """inputs: token ids [B, T] or float embeddings [B, T, d].
+        Returns (hidden [B, T, d], cache) — the cache updated in place."""
+        if torch.is_floating_point(inputs):
+            x = inputs.to(self.compute_dtype)
+        else:
+            x = L.embed_apply(params["embed"], inputs).to(self.compute_dtype)
+        T = x.shape[1]
+        if positions is None:
+            if ctx.decode_pos is None:
+                positions = torch.arange(T, dtype=torch.int32,
+                                         device=x.device)
+            else:
+                dp = torch.as_tensor(ctx.decode_pos, dtype=torch.int32,
+                                     device=x.device)
+                positions = dp.reshape(1) if dp.ndim == 0 else dp[:, None]
+        for i, (p_l, win) in enumerate(zip(params["layers"],
+                                           self.layer_windows())):
+            c_l = (None if cache is None else
+                   {"k": cache["k"][i], "v": cache["v"][i]})
+            x, _ = self._block(p_l, x, ctx, win, positions, c_l)
+        x = L.rmsnorm_apply(params["ln_f"], x)
+        return x, cache
+
+    def head(self, params, h, ctx: Ctx):
+        """hidden [..., d] -> logits [..., vocab_padded] (tied embeddings)."""
+        cfg = self.cfg
+        emb = params["embed"]["e"].to(h.dtype)
+        dn = (((h.ndim - 1,), (1,)), ((), ()))
+        with N.scope("head"):
+            logits = N.dot_general(h, emb, dn, ctx.numerics,
+                                   op="matmul").to(torch.float32)
+        if cfg.logit_softcap:
+            logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+        if cfg.vocab_padded > cfg.vocab:  # mask padded vocab slots
+            pad = torch.arange(cfg.vocab_padded, device=h.device) >= cfg.vocab
+            logits = torch.where(pad, torch.tensor(-1e30, device=h.device),
+                                 logits)
+        return logits
+
+    # ------------------------------------------------------------------
+    # Serving
+    # ------------------------------------------------------------------
+
+    def init_cache(self, batch: int, max_len: int, dtype=None):
+        """Dense per-slot cache ``{"k","v"}`` of ``[L, B, max_len, KV, hd]``."""
+        cfg = self.cfg
+        dtype = torch_dtype(dtype or cfg.cache_dtype)
+        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+
+    def init_paged_cache(self, num_pages: int, page_size: int, dtype=None):
+        """Shared page pool ``{"k","v"}`` of ``[L, P, page_size, KV, hd]``;
+        pages 0/1 are reserved (null read page / trash write sink)."""
+        cfg = self.cfg
+        dtype = torch_dtype(dtype or cfg.cache_dtype)
+        shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads,
+                 cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+
+    def reset_cache(self, cache, slot=None):
+        """Zero the whole cache or one slot's rows, in place."""
+        return L.cache_reset(cache, slot, batch_axis=1)
+
+    def prefill(self, params, inputs, ctx: Ctx, cache):
+        """Run the prompt through the stack, filling the cache.
+        Returns (last-position logits [B, Vp], cache)."""
+        hidden, cache = self.forward(params, inputs, ctx, cache=cache)
+        logits = self.head(params, hidden[:, -1:, :], ctx)[:, 0, :]
+        return logits, cache
+
+    def decode_step(self, params, tok, pos, cache, ctx: Ctx, *,
+                    page_table=None, write_mask=None):
+        """One decode step.  tok [B] int; pos int or [B] int32.  With
+        ``page_table`` ([B, n_logical] int32) ``cache`` is the page pool
+        and ``write_mask`` ([B] bool) sends masked rows' writes to the
+        trash page.  Returns (logits [B, Vp], cache)."""
+        ctx = dataclasses.replace(ctx, decode_pos=pos, page_table=page_table,
+                                  decode_write=write_mask)
+        hidden, cache = self.forward(params, tok[:, None], ctx, cache=cache)
+        logits = self.head(params, hidden[:, 0, :], ctx)
+        return logits, cache
+
+
+def params_from_jax(np_params, cfg: ModelConfig, device="cuda"):
+    """The reference's ``Model.init`` pytree, as numpy arrays with layers
+    stacked ``[L, ...]``, converted to this package's parameter dicts."""
+    import numpy as np
+
+    def conv(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+    def layer(tree, i):
+        if isinstance(tree, dict):
+            return {k: layer(v, i) for k, v in tree.items()}
+        return conv(np.asarray(tree)[i])
+
+    return {"embed": {"e": conv(np_params["embed"]["e"])},
+            "layers": [layer(np_params["layers"], i)
+                       for i in range(cfg.n_layers)],
+            "ln_f": {"g": conv(np_params["ln_f"]["g"])}}

@@ -1,0 +1,121 @@
+"""The numerics entry point: context-scoped policy + backend.
+
+Counterpart of ``repro.numerics.api``.  Every matmul-shaped op funnels
+through ``dot_general`` / ``decode_attention`` here; each call resolves
+(active layer path, op kind) against the given context's
+:class:`PrecisionPolicy` and dispatches to its backend.  Layer paths come from ``scope(name)`` context managers in
+the model code ("attn", "mlp", "head"); they nest with "/".
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
+import threading
+
+from repro_torch.core.engine import EulerConfig
+
+from .backends import get_backend
+from .policy import PrecisionPolicy
+
+
+@dataclasses.dataclass(frozen=True)
+class NumericsContext:
+    """Frozen (policy, backend) pair — the unit of numerics configuration."""
+
+    policy: PrecisionPolicy = dataclasses.field(
+        default_factory=PrecisionPolicy)
+    backend: str = "lax_ref"
+
+    @classmethod
+    def from_ecfg(cls, ecfg: EulerConfig,
+                  backend: str = "lax_ref") -> "NumericsContext":
+        return cls(policy=PrecisionPolicy.uniform(ecfg), backend=backend)
+
+    def cfg_for(self, path: str, op: str = "dot_general") -> EulerConfig:
+        return self.policy.resolve(path, op)
+
+    def to_dict(self) -> dict:
+        return {"policy": self.policy.to_dict(), "backend": self.backend}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "NumericsContext":
+        return cls(policy=PrecisionPolicy.from_dict(d.get("policy", {})),
+                   backend=d.get("backend", "lax_ref"))
+
+
+DEFAULT = NumericsContext()
+
+_TLS = threading.local()
+
+
+def _scope_stack() -> list:
+    if not hasattr(_TLS, "scope"):
+        _TLS.scope = []
+    return _TLS.scope
+
+
+def current() -> NumericsContext:
+    """The context an op given none runs under (exact numerics on
+    ``lax_ref``; models pass theirs explicitly through ``Ctx``)."""
+    return DEFAULT
+
+
+def current_path() -> str:
+    return "/".join(_scope_stack())
+
+
+@contextlib.contextmanager
+def scope(name: str):
+    """Push a layer-path component for policy pattern matching."""
+    stack = _scope_stack()
+    stack.append(name)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def scoped(name: str):
+    """Decorator form of :func:`scope`."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with scope(name):
+                return fn(*args, **kwargs)
+        return wrapper
+    return deco
+
+
+def resolve(op: str = "dot_general", path: str | None = None,
+            ctx: NumericsContext | None = None) -> EulerConfig:
+    """The EulerConfig an op made here and now would run under."""
+    nctx = ctx if ctx is not None else current()
+    p = path if path is not None else current_path()
+    return nctx.cfg_for(p, op)
+
+
+def _dispatch(op: str, ctx: NumericsContext | None, path: str | None):
+    nctx = ctx if ctx is not None else current()
+    p = path if path is not None else current_path()
+    return get_backend(nctx.backend), nctx.cfg_for(p, op)
+
+
+def dot_general(a, b, dimension_numbers, ctx: NumericsContext | None = None,
+                *, op: str = "dot_general", path: str | None = None):
+    """``lax.dot_general`` (JAX dimension numbers) under the active
+    policy/backend; ``op`` tags the call for policy resolution."""
+    backend, cfg = _dispatch(op, ctx, path)
+    return backend.dot_general(a, b, dimension_numbers, cfg)
+
+
+def decode_attention(q, k_pages, v_pages, page_table, pos,
+                     ctx: NumericsContext | None = None, *, pc=None,
+                     softcap=None, window=None, path: str | None = None):
+    """Paged decode attention over posit-word KV pages, dispatched whole to
+    the backend (the ``cuda`` backend may run the fused kernel)."""
+    nctx = ctx if ctx is not None else current()
+    p = path if path is not None else current_path()
+    return get_backend(nctx.backend).decode_attention(
+        q, k_pages, v_pages, page_table, pos, nctx, p,
+        pc=pc, softcap=softcap, window=window)
