@@ -4,24 +4,39 @@
 
 Phases (each asserts; a failed phase exits non-zero and prints no result):
 
-1. the card's name and power limit; build of the three CUDA kernels from
+1. the card's name and power limit; build of the four CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the main path: posit encode (bit-exact, six formats with
-   zero/NaR/clamp/subnormal inputs), logmac (M in {4, 32, 128} against the
-   five gemma2-2b K x N shapes, per-element bound
+   zero/NaR/clamp/subnormal inputs), posit decode (bit-identical f32 on
+   six formats: every 8- and 16-bit pattern plus 2^24 random 32-bit
+   words), logmac (P16: M in {4, 32, 128}; P8 and P32: M in {4, 32};
+   against the five gemma2-2b K x N shapes, per-element bound
    ``1e-5*(|va||vb| + |ra||rb|) + 1e-4``), paged flash-decode (max-abs
    <= 1e-3 against the plain version, < 0.05 against the gather
    reference);
 3. serving gemma2-2b FULL (26 layers, d_model 2304, seeded random
    weights) through ``repro_torch.launch.serve`` with a paged uint16
    posit KV cache on the ``cuda`` backend: 8 requests, batch 4, max_len
-   256, max_new 16; launch counts of all three kernels must be > 0; then
-   the SMOKE model's logits on the kernels against the reference engine;
+   256, max_new 16; encode, logmac and paged flash-decode must launch;
+   then the SMOKE model's logits on the kernels against the reference
+   engine;
+3b. guarded, laddered serving of gemma2-2b FULL through the same launcher
+   (``--guard --degrade-ladder 8``, P16 -> P8): every request ``ok``,
+   demotions and mixed-level steps, encode and logmac launched at widths 8
+   and 16, paged flash-decode not launched (the guarded path attends
+   through the gather reference, as the JAX package does), guard checks
+   with zero violations;
+3c. the fault-injection campaign ``repro_torch.launch.faultcamp --smoke
+   --guard`` (the TINY model in posit mode: no kernel) with its asserts;
+3d. the ``ops.encode`` -> ``ops.decode`` codec path on an MLP weight;
 4. each kernel timed with CUDA events (L2 flushed before every launch)
    beside its plain version, with the least time the card could take.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+Launch counts are reset just before each path (3, 3b, 3c, 3d) and read
+just after; each path asserts the kernels it launches, and the
+``launches`` of the kernels line sum the four paths.  The line before the
+last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -140,12 +155,12 @@ def main(argv=None) -> int:
     from repro_torch.core import posit as P
     from repro_torch.core.engine import _pow2_scale, from_variant
     from repro_torch.kernels import logmac as LM
+    from repro_torch.kernels import ops as OPS
     from repro_torch.kernels import paged_decode as PD
     from repro_torch.kernels import posit_codec as PC
+    from repro_torch.launch import pin_exact_f32
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    pin_exact_f32()
     dev = torch.device("cuda", 0)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -165,7 +180,18 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     ecfg = from_variant(16, "L-21b")
-    errs = {"posit_encode": 0.0, "logmac": 0.0, "paged_flash_decode": 0.0}
+    errs = {"posit_encode": 0.0, "posit_decode": 0.0, "logmac": 0.0,
+            "paged_flash_decode": 0.0}
+    total_launches = dict.fromkeys(errs, 0)
+
+    def path_launches(what: str) -> dict:
+        """The counts since the last reset, added to the run's total."""
+        got = dict(_build.LAUNCHES)
+        for k, n in got.items():
+            total_launches[k] += n
+        log(f"[{what}] launches: {got}, by width: "
+            f"{ {k: v for k, v in _build.WIDTH_LAUNCHES.items() if v} }")
+        return got
 
     # ---- phase 2: kernels against their plain versions ------------------
     specials = torch.tensor(
@@ -188,34 +214,66 @@ def main(argv=None) -> int:
         errs["posit_encode"] = max(errs["posit_encode"], float(diff.max()))
     log(f"[encode] bit-exact on 6 formats, {x.numel()} inputs incl. "
         f"zero/NaR/clamp/subnormal")
+    del x
 
-    def bits(shape, scale_pow=3):
+    # posit decode: every 8- and 16-bit pattern, 2^24 random 32-bit words
+    # (with 0 and NaR); the kernel masks each word to its format's N bits
+    words = torch.cat([
+        torch.arange(1 << 8, dtype=torch.int32, device=dev),
+        torch.arange(1 << 16, dtype=torch.int32, device=dev),
+        torch.tensor([0, -(1 << 31)], dtype=torch.int32, device=dev),
+        torch.randint(-(1 << 31), (1 << 31) - 1, (1 << 24,), generator=gen,
+                      dtype=torch.int32, device=dev)]).contiguous()
+    for pc in (P.POSIT8, P.BPOSIT8, P.POSIT16, P.BPOSIT16, P.POSIT32,
+               P.BPOSIT32):
+        got = PC.posit_decode(words, pc)
+        want = PC.decode_plain(words, pc)
+        torch.cuda.synchronize()
+        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        assert bad == 0, f"decode {pc.name}: {bad} f32 results differ"
+        nar = 1 << (pc.n_bits - 1) if pc.n_bits < 32 else -(1 << 31)
+        specials = torch.tensor([0, nar], dtype=torch.int32, device=dev)
+        assert PC.posit_decode(specials, pc).tolist() == [0.0, 0.0], pc.name
+        errs["posit_decode"] = max(errs["posit_decode"],
+                                   float((got - want).abs().max()))
+    log(f"[decode] bit-identical f32 on 6 formats, {words.numel()} words "
+        f"incl. every 8/16-bit pattern, 0 and NaR (-> 0.0)")
+    del words, got, want
+
+    def bits(shape, pc, scale_pow=3):
         v = torch.randn(shape, generator=gen, device=dev)
         v = v * torch.exp2(torch.randint(-scale_pow, scale_pow, shape,
                                          generator=gen,
                                          device=dev).to(torch.float32))
-        return PC.posit_encode((v / _pow2_scale(v)).contiguous(), ecfg.posit)
+        return PC.posit_encode((v / _pow2_scale(v)).contiguous(), pc)
 
+    # P16 is the served width; P8 is the ladder's width and P32 the guard's
+    # escalation width, each encoded by the encode kernel at that width
     worst = 0.0
-    for M in (4, 32, 128):
-        for K, N in GEMMA_KN:
-            a, b = bits((M, K)), bits((K, N))
-            got = LM.logmac(a, b, ecfg)
-            want = LM.logmac_plain(a, b, ecfg)
-            va, ra = LM.decode_planes(a, ecfg)
-            ok_all = True
-            for c0 in range(0, N, 16384):
-                vb, rb = LM.decode_planes(b[:, c0:c0 + 16384], ecfg)
-                bound = 1e-5 * (va.abs() @ vb.abs() + ra.abs() @ rb.abs()) + 1e-4
-                diff = (got[:, c0:c0 + 16384] - want[:, c0:c0 + 16384]).abs()
-                ok_all &= bool((diff <= bound).all())
-                worst = max(worst, float(diff.max()))
-            assert ok_all, f"logmac M={M} K={K} N={N} outside its bound"
-            assert bool(torch.isfinite(got).all())
-            del a, b, got, want
+    for width, Ms in ((16, (4, 32, 128)), (8, (4, 32)), (32, (4, 32))):
+        wcfg = from_variant(width, "L-21b")
+        for M in Ms:
+            for K, N in GEMMA_KN:
+                a, b = bits((M, K), wcfg.posit), bits((K, N), wcfg.posit)
+                got = LM.logmac(a, b, wcfg)
+                want = LM.logmac_plain(a, b, wcfg)
+                va, ra = LM.decode_planes(a, wcfg)
+                ok_all = True
+                for c0 in range(0, N, 16384):
+                    vb, rb = LM.decode_planes(b[:, c0:c0 + 16384], wcfg)
+                    bound = (1e-5 * (va.abs() @ vb.abs() + ra.abs() @ rb.abs())
+                             + 1e-4)
+                    diff = (got[:, c0:c0 + 16384]
+                            - want[:, c0:c0 + 16384]).abs()
+                    ok_all &= bool((diff <= bound).all())
+                    worst = max(worst, float(diff.max()))
+                assert ok_all, (f"logmac P{width} M={M} K={K} N={N} outside "
+                                "its bound")
+                assert bool(torch.isfinite(got).all())
+                del a, b, got, want
+        log(f"[logmac] P{width} L-21b, M in {Ms} x {GEMMA_KN} within the "
+            f"per-element bound (max abs diff so far {worst:.3g})")
     errs["logmac"] = worst
-    log(f"[logmac] M in (4, 32, 128) x {GEMMA_KN} within the per-element bound "
-        f"(max abs diff {worst:.3g})")
 
     # paged flash-decode at the serving geometry
     B, KV, G, hd, ps, max_len = 4, 4, 2, 288, 16, 256
@@ -259,7 +317,7 @@ def main(argv=None) -> int:
             f"max|kernel-reference|={d_ref:.3g}")
 
     # ---- phase 3: serve gemma2-2b FULL through the launcher -------------
-    from repro_torch.launch import serve
+    from repro_torch.launch import faultcamp, serve
     _build.reset_launches()
     rep = serve.main(["--arch", "gemma2-2b", "--full", "--paged",
                       "--page-size", "16", "--cache-dtype", "uint16",
@@ -267,13 +325,12 @@ def main(argv=None) -> int:
                       "16", "--device", "cuda", "--batch", "4", "--max-len",
                       "256", "--requests", "8", "--max-new", "16",
                       "--seed", "0"])
-    launches = dict(_build.LAUNCHES)
-    log(f"[serve] launches on the main path: {launches}")
+    launches = path_launches("serve")
     assert rep["n_layers"] == 26 and rep["d_model"] == 2304, rep["arch"]
     assert rep["tokens"] == 128, rep["tokens"]
     assert rep["refills"] >= 1, rep["refills"]
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} was not launched on the main path"
+    for name in ("posit_encode", "logmac", "paged_flash_decode"):
+        assert launches[name] > 0, f"kernel {name} was not launched in serving"
     eng = rep["engine"]
     first = next(iter(rep["results"].values()))
     logits, _ = eng.model.prefill(
@@ -314,6 +371,102 @@ def main(argv=None) -> int:
                                atol=2e-3)
     log(f"[smoke-model] cuda vs lax_ref prefill logits max diff "
         f"{float((outs['cuda'] - outs['lax_ref']).abs().max()):.3g}")
+    del outs, params, m
+
+    # ---- phase 3b: guarded, laddered serving of gemma2-2b FULL ----------
+    # --slo-queue-hi 3: of the first four admissions three see >= 3 queued
+    # requests (-> P8) and the fourth sees 2 (-> P16), so the first decode
+    # steps run both levels
+    _build.reset_launches()
+    rep = serve.main(["--arch", "gemma2-2b", "--full", "--paged",
+                      "--cache-dtype", "uint16", "--backend", "cuda",
+                      "--guard", "--width", "16", "--euler", "L-21b",
+                      "--degrade-ladder", "8", "--slo-queue-hi", "3",
+                      "--device", "cuda", "--batch", "4", "--max-len", "256",
+                      "--requests", "6", "--max-new", "4", "--seed", "0"])
+    launches = path_launches("guarded serve")
+    by_width = rep["launches_by_width"]
+    g = rep["guard"]
+    assert rep["n_layers"] == 26 and rep["d_model"] == 2304, rep["arch"]
+    assert rep["requests"] == 6 and set(rep["statuses"].values()) == {"ok"}, \
+        rep["statuses"]
+    assert rep["tokens"] == 24, rep["tokens"]
+    assert rep["demotions"] > 0, rep["demotions"]
+    assert rep["mixed_steps"] > 0, "no decode step ran both ladder levels"
+    for name in ("posit_encode", "logmac"):
+        for w in (8, 16):
+            assert by_width[name].get(w, 0) > 0, (
+                f"{name} not launched at width {w}: {by_width[name]}")
+    assert launches["paged_flash_decode"] == 0, launches
+    assert g["checks"] > 0 and g["violations"] == 0, g
+    log(f"[guarded-serve] {card}: {rep['tok_per_s']:.3f} tok/s, request "
+        f"latency p50 {rep['latency_p50_s']:.3f}s p99 "
+        f"{rep['latency_p99_s']:.3f}s, {rep['steps']} steps "
+        f"({rep['mixed_steps']} mixed-level), {rep['demotions']} demotions, "
+        f"guard {g['checks']} checks / {g['violations']} violations, "
+        f"max_memory_allocated {rep['max_memory_allocated'] / 2**30:.2f} GiB")
+    guarded_line = {k: rep[k] for k in (
+        "tokens", "seconds", "tok_per_s", "latency_p50_s", "latency_p99_s",
+        "steps", "mixed_steps", "demotions", "max_memory_allocated")}
+    guarded_line.update(guard=g, launches_by_width=by_width, card=card)
+    log("[guarded-serve] " + json.dumps(guarded_line))
+
+    # the guard's share of a FULL forward pass: one 16-token prefill through
+    # cuda and guarded:cuda on the served weights, in turns (plain, guarded,
+    # guarded, plain); a clean guard returns the base op's output unchanged
+    eng = rep["engine"]
+    if args.profile:
+        profile_drain(eng, card)
+    ids16 = torch.as_tensor(rep["results"][0][:1].tolist() * 16,
+                            device=dev)[None, :]
+    pass_s = {"cuda": [], "guarded:cuda": []}
+    logits = {}
+    for backend in ("cuda", "guarded:cuda", "guarded:cuda", "cuda"):
+        nctx = NumericsContext.from_ecfg(ecfg, backend=backend)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits[backend], _ = eng.model.prefill(
+            eng.params, ids16, Ctx(numerics=nctx),
+            eng.model.init_cache(1, 16, "uint16"))
+        torch.cuda.synchronize()
+        pass_s[backend].append(time.perf_counter() - t0)
+    torch.testing.assert_close(logits["guarded:cuda"], logits["cuda"],
+                               rtol=1e-4, atol=2e-3)
+    t_plain = sum(pass_s["cuda"]) / 2
+    t_guard = sum(pass_s["guarded:cuda"]) / 2
+    log(f"[guard-share] {card}: FULL 16-token prefill pass {t_plain:.4f} s "
+        f"on cuda, {t_guard:.4f} s on guarded:cuda (guard share "
+        f"{100 * (1 - t_plain / t_guard):.1f} % of a guarded pass; each "
+        f"pass: {pass_s}); logits max diff "
+        f"{float((logits['guarded:cuda'] - logits['cuda']).abs().max()):.3g}")
+    del rep, eng, logits
+    torch.cuda.empty_cache()
+
+    # ---- phase 3c: the fault-injection campaign entry point --------------
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    camp = faultcamp.main(["--smoke", "--guard", "--device", "cuda"])
+    path_launches("faultcamp")
+    assert camp["config"]["device"].startswith("cuda"), camp["config"]
+    log(f"[faultcamp] {card}: smoke grid with the guard arm passed its "
+        f"asserts in {time.perf_counter() - t0:.1f}s: "
+        f"{json.dumps(camp['summary'], sort_keys=True)}")
+
+    # ---- phase 3d: the codec path, ops.encode -> ops.decode -------------
+    xw = torch.randn((2304, 9216), generator=gen, device=dev)
+    xs = (xw / _pow2_scale(xw)).contiguous()
+    _build.reset_launches()
+    pats = OPS.encode(xs, ecfg.posit)
+    vals = OPS.decode(pats, ecfg.posit)
+    torch.cuda.synchronize()
+    launches = path_launches("codec")
+    assert launches["posit_encode"] == 1 and launches["posit_decode"] == 1
+    assert vals.shape == xs.shape and bool(torch.isfinite(vals).all())
+    assert bool((vals.view(torch.int32)
+                 == PC.decode_plain(pats, ecfg.posit).view(torch.int32)).all())
+    log(f"[codec] decode(encode(w)) of a pre-scaled [2304, 9216] weight: "
+        f"max |round trip - w| {float((vals - xs).abs().max()):.3g}")
+    del pats, vals, xs
 
     # ---- phase 4: timings ----------------------------------------------
     flush_buf = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
@@ -335,27 +488,42 @@ def main(argv=None) -> int:
                  "shape": "f32 [2304, 9216] -> uint32",
                  "bytes": enc_bytes, "flops": 0,
                  "ms": enc_ms, "plain_ms": enc_plain})
-    # logmac at decode (M=4) and prefill-bucket (M=32, 128) widths of the MLP
-    for M in (4, 32, 128):
+    # decode of the same weight's P16 words: 4 B in and 4 B out per word
+    pw = PC.posit_encode(xw, ecfg.posit)
+    dec_ms = time_ms(lambda: PC.posit_decode(pw, ecfg.posit), flush=flush)
+    dec_plain = time_ms(lambda: PC.decode_plain(pw, ecfg.posit), reps=3,
+                        flush=flush)
+    rows.append({"name": "posit_decode", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/posit_decode.cu",
+                 "replaces": "src/repro/kernels/posit_codec.py:77",
+                 "shape": "uint32 [2304, 9216] -> f32",
+                 "bytes": n * 4 + n * 4, "flops": 0,
+                 "ms": dec_ms, "plain_ms": dec_plain})
+    del pw
+    # logmac at decode (M=4) and prefill-bucket (M=32, 128) widths of the
+    # MLP at P16, and at decode width at the ladder's P8 and the guard's P32
+    # (4 B per weight word at every width, so one bound formula)
+    for width, M in ((16, 4), (16, 32), (16, 128), (8, 4), (32, 4)):
         K, N = 2304, 9216
-        a, b = bits((M, K)), bits((K, N))
-        ms = time_ms(lambda: LM.logmac(a, b, ecfg), flush=flush)
-        pms = time_ms(lambda: LM.logmac_plain(a, b, ecfg), reps=3,
+        wcfg = from_variant(width, "L-21b")
+        a, b = bits((M, K), wcfg.posit), bits((K, N), wcfg.posit)
+        ms = time_ms(lambda: LM.logmac(a, b, wcfg), flush=flush)
+        pms = time_ms(lambda: LM.logmac_plain(a, b, wcfg), reps=3,
                       flush=flush)
         rows.append({"name": "logmac", "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/logmac.cu",
                      "replaces": "src/repro/kernels/logmac.py:136",
-                     "shape": f"M={M} K={K} N={N}",
+                     "shape": f"P{width} M={M} K={K} N={N}",
                      "bytes": (M * K + K * N + M * N) * 4,
                      "flops": 4 * M * N * K, "ms": ms, "plain_ms": pms})
     # the head at decode width
-    a, b = bits((4, 2304)), bits((2304, 256000))
+    a, b = bits((4, 2304), ecfg.posit), bits((2304, 256000), ecfg.posit)
     ms = time_ms(lambda: LM.logmac(a, b, ecfg), reps=5, flush=flush)
     pms = time_ms(lambda: LM.logmac_plain(a, b, ecfg), reps=2, flush=flush)
     rows.append({"name": "logmac", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/logmac.cu",
                  "replaces": "src/repro/kernels/logmac.py:136",
-                 "shape": "M=4 K=2304 N=256000",
+                 "shape": "P16 M=4 K=2304 N=256000",
                  "bytes": (4 * 2304 + 2304 * 256000 + 4 * 256000) * 4,
                  "flops": 4 * 4 * 256000 * 2304, "ms": ms, "plain_ms": pms})
     del a, b
@@ -387,11 +555,12 @@ def main(argv=None) -> int:
             f"({r['bound_by']})")
 
     kernels = []
-    for name in ("posit_encode", "logmac", "paged_flash_decode"):
+    for name in ("posit_encode", "posit_decode", "logmac",
+                 "paged_flash_decode"):
         r = next(r for r in rows if r["name"] == name)
         kernels.append({
             "name": name, "route": r["route"], "source": r["source"],
-            "replaces": r["replaces"], "launches": launches[name],
+            "replaces": r["replaces"], "launches": total_launches[name],
             "max_abs_err": errs[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})

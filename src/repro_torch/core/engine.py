@@ -171,3 +171,13 @@ def euler_dot_general(a, b, dimension_numbers, cfg: EulerConfig):
                    out).to(out.dtype)
     return out.to(torch.promote_types(va.dtype, vb.dtype))
 
+
+
+def ilm_elementwise(a, b, cfg: EulerConfig):
+    """Elementwise EULER product (the reference's SSD state-update op)."""
+    va, ra = operand_planes(a, cfg)
+    vb, rb = operand_planes(b, cfg)
+    out = va * vb
+    if ra is not None and rb is not None:
+        out = out - ra * rb
+    return out

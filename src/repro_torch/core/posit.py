@@ -128,15 +128,12 @@ def pow2(e: torch.Tensor) -> torch.Tensor:
 def leading_run(body: torch.Tensor, n: int, r0: torch.Tensor,
                 depth: int) -> torch.Tensor:
     """Length of the run of ``r0`` bits at the top of the ``n``-bit field
-    ``body``, scanned ``depth`` bits deep (a masked bit loop; torch has no
-    count-leading-zeros)."""
-    run = torch.zeros_like(body)
-    cont = torch.ones_like(body, dtype=torch.bool)
-    for j in range(depth):
-        bit = (body >> (n - 1 - j)) & 1
-        cont = cont & (bit == r0)
-        run = run + cont.to(body.dtype)
-    return run
+    ``body``, capped at ``depth``: ``n`` minus the bit length of the field
+    with ``r0 == 1`` runs inverted (torch has no count-leading-zeros; the
+    bit length comes from a float64 ``frexp``, exact below 2^53)."""
+    x = torch.where(r0 == 1, ~body, body) & mask(n)
+    _, e = torch.frexp(x.to(torch.float64))   # frexp(0) gives e = 0
+    return torch.clamp(n - e.to(body.dtype), max=depth)
 
 
 # --------------------------------------------------------------------------
@@ -278,9 +275,27 @@ def encode_from_float(x, cfg: PositConfig):
     return pat
 
 
+_QUANT_CHUNK = 1 << 24
+
+
 def quantize(x, cfg: PositConfig, dtype=torch.float32):
-    """Round floats to the nearest posit value (roundtrip through the codec)."""
-    return decode_to_float(encode_from_float(x, cfg), cfg, dtype)
+    """Round floats to the nearest posit value (roundtrip through the codec).
+
+    Tensors above ``_QUANT_CHUNK`` elements go through the codec a chunk of
+    the flattened tensor at a time, so the codec's int64 temporaries stay a
+    few hundred MB (a gemma2-2b head is 590 M values); the result is
+    elementwise and identical."""
+    x = torch.as_tensor(x)
+    n = x.numel()
+    if n <= _QUANT_CHUNK:
+        return decode_to_float(encode_from_float(x, cfg), cfg, dtype)
+    flat = x.reshape(-1)
+    out = torch.empty(n, dtype=dtype, device=x.device)
+    for c0 in range(0, n, _QUANT_CHUNK):
+        part = flat[c0:c0 + _QUANT_CHUNK]
+        out[c0:c0 + _QUANT_CHUNK] = decode_to_float(
+            encode_from_float(part, cfg), cfg, dtype)
+    return out.reshape(x.shape)
 
 
 def storage_pc(dtype, preferred: PositConfig | None = None) -> PositConfig | None:

@@ -22,7 +22,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("posit_encode", "logmac", "paged_decode")
+SOURCES = ("posit_encode", "posit_decode", "logmac", "paged_decode")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # REPRO_TORCH_NVCC_VERBOSE=1 adds -Xptxas -v and prints each kernel's
@@ -109,12 +109,22 @@ def check(err: int, what: str) -> None:
 
 # Launch counts: each wrapper adds one where it launches its kernel, and
 # nowhere else (a plain-version call on a CPU tensor does not count).
-LAUNCHES = {"posit_encode": 0, "logmac": 0, "paged_flash_decode": 0}
+# ``WIDTH_LAUNCHES`` splits the same launches by posit word width.
+LAUNCHES = {"posit_encode": 0, "posit_decode": 0, "logmac": 0,
+            "paged_flash_decode": 0}
+WIDTH_LAUNCHES: dict[str, dict[int, int]] = {k: {} for k in LAUNCHES}
+
+
+def count_launch(name: str, width: int) -> None:
+    LAUNCHES[name] += 1
+    by_width = WIDTH_LAUNCHES[name]
+    by_width[width] = by_width.get(width, 0) + 1
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        WIDTH_LAUNCHES[k].clear()
 
 
 def stream_ptr(t) -> int:

@@ -44,7 +44,7 @@ def decode_planes_raw(pat, pc: P.PositConfig, stages: int,
     is_special = (p == 0) | (p == (1 << (N - 1)))
 
     r0 = (body >> (N - 2)) & 1
-    # fixed-depth regime scan: rcap iterations
+    # the regime run, capped at rcap (the kernels' fixed-depth scan)
     run = P.leading_run(body, N - 1, r0, rcap)
     sat = run >= rcap
     rw = torch.where(sat, torch.full_like(run, rcap), run + 1)
@@ -137,5 +137,5 @@ def logmac(a_pat: torch.Tensor, b_pat: torch.Tensor,
              -1 if m is None else m, int(subtracts_rem(ecfg)),
              _build.stream_ptr(a_pat))
     _build.check(err, "logmac")
-    _build.LAUNCHES["logmac"] += 1
+    _build.count_launch("logmac", pc.n_bits)
     return out

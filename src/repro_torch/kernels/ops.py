@@ -19,6 +19,11 @@ def encode(x: torch.Tensor, pc) -> torch.Tensor:
     return _codec.posit_encode(x, pc)
 
 
+def decode(pat: torch.Tensor, pc) -> torch.Tensor:
+    """Posit words -> f32 through the decode kernel (0 and NaR -> 0.0)."""
+    return _codec.posit_decode(pat, pc)
+
+
 def logmac_matmul(a_pat: torch.Tensor, b_pat: torch.Tensor,
                   ecfg: EulerConfig) -> torch.Tensor:
     return _logmac.logmac(a_pat, b_pat, ecfg)

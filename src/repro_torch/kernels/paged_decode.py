@@ -258,5 +258,5 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, pos, window=None, *,
              -1 if mv is None else mv,
              _build.stream_ptr(q))
     _build.check(err, "paged_flash_decode")
-    _build.LAUNCHES["paged_flash_decode"] += 1
+    _build.count_launch("paged_flash_decode", pc.n_bits)
     return out.reshape(B, 1, H * hd)

@@ -1,10 +1,16 @@
-"""Posit encode: the CUDA kernel and its plain PyTorch version.
+"""Posit encode and decode: the CUDA kernels and their plain versions.
 
 ``encode_body`` builds each pattern straight from the f32 bit fields (no
 frexp) with pattern-domain RNE, exactly like ``repro.kernels.posit_codec``:
 subnormal inputs flush to zero (DAZ) and Inf/NaN map to NaR.
 ``posit_encode`` is the wrapper: plain version for a CPU tensor, the
 ``csrc/posit_encode.cu`` kernel for a CUDA tensor.
+
+``posit_decode`` maps words to f32 through the ILM ``val`` plane
+(``decode_planes_raw`` with stages 0), like the TPU decode kernel: zero and
+NaR both decode to 0.0 and the mantissa is converted to f32 before it is
+scaled.  That is not the core codec's ``decode_to_float`` (NaR -> NaN), so
+no caller of the core codec is routed here; ``ops.decode`` is its entry.
 
 Patterns come back as ``int32`` tensors holding the uint32 word's bits (low
 N bits valid); the plain version's int64 result is narrowed the same way.
@@ -17,6 +23,7 @@ import torch
 
 from repro_torch.core import posit as P
 from . import _build
+from .logmac import decode_planes_raw
 
 _G = 26  # guard bits (>= 23 keeps f32 inputs exact)
 M = P.mask
@@ -103,5 +110,35 @@ def posit_encode(x: torch.Tensor, pc: P.PositConfig) -> torch.Tensor:
     err = fn(x.data_ptr(), out.data_ptr(), x.numel(), pc.n_bits, pc.es,
              pc.regime_max or 0, _build.stream_ptr(x))
     _build.check(err, "posit_encode")
-    _build.LAUNCHES["posit_encode"] += 1
+    _build.count_launch("posit_encode", pc.n_bits)
+    return out
+
+
+def decode_plain(pat, pc: P.PositConfig) -> torch.Tensor:
+    """The plain version of the decode kernel: f32 values (0 and NaR -> 0)."""
+    val, _ = decode_planes_raw(pat, pc, 0, None, None)
+    return val
+
+
+def posit_decode(pat: torch.Tensor, pc: P.PositConfig) -> torch.Tensor:
+    """Posit words (int32 holding uint32 bits, low N valid) -> f32, any
+    shape."""
+    if pat.device.type == "cpu":
+        return decode_plain(pat, pc)
+    if pat.device.type != "cuda":
+        raise ValueError(f"posit_decode: unsupported device {pat.device}")
+    if pat.dtype != torch.int32 or not pat.is_contiguous():
+        raise ValueError("posit_decode: kernel takes contiguous int32 words "
+                         f"(got {pat.dtype}, "
+                         f"contiguous={pat.is_contiguous()})")
+    out = torch.empty(pat.shape, dtype=torch.float32, device=pat.device)
+    lib = _build.load("posit_decode")
+    fn = lib.posit_decode_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(pat.data_ptr(), out.data_ptr(), pat.numel(), pc.n_bits, pc.es,
+             pc.regime_max or 0, _build.stream_ptr(pat))
+    _build.check(err, "posit_decode")
+    _build.count_launch("posit_decode", pc.n_bits)
     return out

@@ -6,7 +6,20 @@ requests through the continuous-batching scheduler.
 
 Runs on ``--device cuda`` (the default) and raises when no CUDA device is
 present; ``--device cpu`` runs the kernels' plain versions on the CPU
-(tests use it with the SMOKE config).
+(tests use it with the SMOKE config).  Float32 contractions run at full
+precision (``pin_exact_f32``: no TF32).
+
+Fault-tolerant serving knobs:
+
+  --guard            run the datapath through the ``guarded:<backend>`` ABFT
+                     wrapper; unrecovered checksum violations re-enqueue the
+                     hit request at higher precision (--guard-retry bound)
+  --deadline-ms      per-request wall-clock SLO; expired requests retire
+                     with status "timeout" instead of holding their slot
+  --degrade-ladder   comma-separated posit widths BELOW --width (e.g. "8"
+                     under --width 16 gives P16 -> P8); under queue pressure
+                     new requests are admitted further down the ladder
+                     (--slo-queue-hi queued requests per level)
 """
 from __future__ import annotations
 
@@ -19,16 +32,51 @@ import torch
 
 from repro_torch import configs as C
 from repro_torch.core.engine import from_variant
+from repro_torch.kernels import _build
+from repro_torch.launch import pin_exact_f32
 from repro_torch.models.layers import Ctx
 from repro_torch.models.transformer import Model
 from repro_torch.numerics import NumericsContext, PrecisionPolicy
+from repro_torch.numerics import api as napi
+from repro_torch.numerics.backends import guarded
+from repro_torch.reliability.guards import GuardConfig
 from repro_torch.serving import (GenerationConfig, PagedKVConfig,
-                                 RequestBatcher, ServeEngine)
+                                 QueueFullError, RequestBatcher, ServeEngine,
+                                 SLOConfig)
 
 
-def build_numerics(args) -> NumericsContext:
-    policy = PrecisionPolicy.uniform(from_variant(args.width, args.euler))
-    return NumericsContext(policy=policy, backend=args.backend)
+def _backend_name(args) -> str:
+    if not args.guard:
+        return args.backend
+    # record every check, so the summary counts clean checks too (the
+    # reference's launcher records violations only)
+    return guarded(args.backend, GuardConfig(record="full")).name
+
+
+def build_numerics(args, width: int | None = None) -> NumericsContext:
+    """The uniform policy of ``--euler`` at ``width`` (default ``--width``)
+    on the chosen backend, guarded under ``--guard``."""
+    policy = PrecisionPolicy.uniform(
+        from_variant(width or args.width, args.euler))
+    return NumericsContext(policy=policy, backend=_backend_name(args))
+
+
+def build_levels(args, primary: NumericsContext
+                 ) -> list[NumericsContext] | None:
+    """The precision ladder of ``--degrade-ladder`` below ``primary``
+    (None without it)."""
+    if not args.degrade_ladder:
+        return None
+    widths = [int(w) for w in args.degrade_ladder.split(",") if w]
+    if any(w >= args.width for w in widths):
+        raise SystemExit(f"--degrade-ladder widths {widths} must sit "
+                         f"strictly below the primary width {args.width}")
+    return [primary] + [build_numerics(args, w) for w in widths]
+
+
+def _launch_counts():
+    return (dict(_build.LAUNCHES),
+            {k: dict(v) for k, v in _build.WIDTH_LAUNCHES.items()})
 
 
 def parser() -> argparse.ArgumentParser:
@@ -58,6 +106,25 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--cache-dtype", default="",
                     help="KV cache dtype: uint8|uint16|uint32 posit words "
                          "or float32|bfloat16 (default: the config's)")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="admission cap: submit() fails beyond this many "
+                         "queued requests (0: unbounded)")
+    ap.add_argument("--guard", action="store_true",
+                    help="ABFT-guard the datapath (guarded:<backend>) and "
+                         "re-enqueue requests hit by unrecovered violations")
+    ap.add_argument("--guard-retry", type=int, default=2,
+                    help="max guard-triggered re-enqueues per request before "
+                         "it retires with status 'failed'")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="per-request wall-clock deadline; 0 disables")
+    ap.add_argument("--degrade-ladder", default="",
+                    help="comma-separated posit widths below --width (e.g. "
+                         "'8'); enables SLO-aware admission degradation")
+    ap.add_argument("--slo-queue-hi", type=int, default=4,
+                    help="queued requests per one-level admission demotion")
+    ap.add_argument("--slo-p99-ms", type=float, default=0.0,
+                    help="step-latency p99 threshold adding one more "
+                         "demotion level; 0 disables")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
@@ -69,9 +136,11 @@ def main(argv=None) -> dict:
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available; "
                            "pass --device cpu to run on the CPU")
+    pin_exact_f32()
     mod = C.get_config(args.arch)
     cfg = mod.FULL if args.full else mod.SMOKE
     nctx = build_numerics(args)
+    levels = build_levels(args, nctx)
     model = Model(cfg, numerics=nctx, device=args.device)
     dev = model.device
     if dev.type == "cuda":
@@ -82,14 +151,30 @@ def main(argv=None) -> dict:
              if args.paged else None)
     eng = ServeEngine(model, params, Ctx(numerics=nctx),
                       max_len=args.max_len, batch=args.batch,
-                      cache_dtype=args.cache_dtype or None, paged=paged)
-    batcher = RequestBatcher(eng, prompt_buckets=(32, 128))
+                      cache_dtype=args.cache_dtype or None, levels=levels,
+                      paged=paged)
+    slo = (SLOConfig(queue_hi=args.slo_queue_hi,
+                     p99_ms=args.slo_p99_ms or None) if levels else None)
+    batcher = RequestBatcher(eng, prompt_buckets=(32, 128),
+                             max_queue=args.max_queue or None, slo=slo,
+                             guard_retry=args.guard_retry if args.guard else 0)
     rng = np.random.default_rng(args.seed)
+    dropped = 0
     for _ in range(args.requests):
         plen = int(rng.integers(4, 24))
-        batcher.submit(rng.integers(0, cfg.vocab, plen), max_new=args.max_new)
+        try:
+            batcher.submit(rng.integers(0, cfg.vocab, plen),
+                           max_new=args.max_new,
+                           deadline_ms=args.deadline_ms or None)
+        except QueueFullError:  # admission control: shed, keep serving
+            dropped += 1
+    if dropped:
+        print(f"queue full: dropped {dropped}/{args.requests} requests "
+              f"(max_queue={args.max_queue})")
 
     done_at: dict[int, float] = {}
+    napi.reset_guard_stats()
+    launches0, by_width0 = _launch_counts()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -100,6 +185,7 @@ def main(argv=None) -> dict:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
+    launches1, by_width1 = _launch_counts()
     ntok = sum(len(v) for v in results.values())
     lat = np.asarray([done_at[r] - t0 for r in sorted(done_at)])
     s = batcher.stats
@@ -112,7 +198,16 @@ def main(argv=None) -> dict:
         "latency_p99_s": float(np.percentile(lat, 99)) if len(lat) else None,
         "steps": s["steps"], "refills": s["refills"],
         "rejected": s["rejected"], "kv_oom": s["kv_oom"],
-        "preempts": s["preempts"],
+        "preempts": s["preempts"], "dropped": dropped,
+        "timeouts": s["timeouts"], "demotions": s["demotions"],
+        "mixed_steps": s["mixed_steps"],
+        "guard_retries": s["guard_retries"],
+        "guard": napi.guard_totals(reset=True) if args.guard else None,
+        "statuses": dict(batcher.statuses),
+        "launches": {k: n - launches0[k] for k, n in launches1.items()},
+        "launches_by_width": {
+            k: {w: n - by_width0[k].get(w, 0) for w, n in v.items()}
+            for k, v in by_width1.items()},
         "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
                                  if dev.type == "cuda" else None),
         "results": results, "engine": eng, "batcher": batcher,
@@ -122,6 +217,14 @@ def main(argv=None) -> dict:
           f"under {nctx.policy.default.variant}@posit"
           f"{nctx.policy.default.width} [{s['steps']} steps, {s['refills']} "
           f"mid-stream refills]")
+    if s["timeouts"] or s["guard_retries"] or s["demotions"]:
+        print(f"  SLO: {s['timeouts']} timeouts, {s['demotions']} admission "
+              f"demotions ({s['mixed_steps']} mixed-level steps), "
+              f"{s['guard_retries']} guard retries")
+    if args.guard:
+        t = report["guard"]
+        print(f"  guard: {t['checks']} checks, {t['violations']} violations, "
+              f"{t['recovered']} recovered, {t['unrecovered']} unrecovered")
     if args.paged:
         kv = eng.kv
         print(f"  paged: page_size={kv.page_size}, peak "

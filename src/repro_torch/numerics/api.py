@@ -98,7 +98,48 @@ def resolve(op: str = "dot_general", path: str | None = None,
 def _dispatch(op: str, ctx: NumericsContext | None, path: str | None):
     nctx = ctx if ctx is not None else current()
     p = path if path is not None else current_path()
+    # the resolved (op, path), for wrapping backends (the Backend protocol
+    # does not carry them): read with last_dispatch() during the call
+    _TLS.last_dispatch = (op, p)
     return get_backend(nctx.backend), nctx.cfg_for(p, op)
+
+
+def last_dispatch() -> tuple[str, str]:
+    """(op kind, layer path) of the most recent dispatch on this thread;
+    the fault and guard wrappers match their rules and label their stats
+    with it."""
+    return getattr(_TLS, "last_dispatch", ("dot_general", current_path()))
+
+
+# --------------------------------------------------------------------------
+# Guard stats (the ``guarded:<base>`` backend's observable surface)
+# --------------------------------------------------------------------------
+
+def guard_stats(reset: bool = False) -> dict:
+    """Per-dispatch ABFT guard counters, keyed ``"<layer path>|<op>"``:
+    ``{checks, violations, retries, recovered, unrecovered, nar_words,
+    saturated_words, sentinel_words}``."""
+    from repro_torch.reliability import guards as _G
+    return _G.stats(reset=reset)
+
+
+def guard_totals(reset: bool = False) -> dict:
+    """:func:`guard_stats` summed over every dispatch site."""
+    from repro_torch.reliability import guards as _G
+    return _G.totals(reset=reset)
+
+
+def drain_guard_events() -> list:
+    """Pop pending per-violation guard events (one dict per violated op
+    call, with leading-axis row flags); the scheduler polls this at step
+    boundaries to retry the affected requests."""
+    from repro_torch.reliability import guards as _G
+    return _G.drain_events()
+
+
+def reset_guard_stats():
+    from repro_torch.reliability import guards as _G
+    _G.reset()
 
 
 def dot_general(a, b, dimension_numbers, ctx: NumericsContext | None = None,
@@ -116,6 +157,7 @@ def decode_attention(q, k_pages, v_pages, page_table, pos,
     the backend (the ``cuda`` backend may run the fused kernel)."""
     nctx = ctx if ctx is not None else current()
     p = path if path is not None else current_path()
+    _TLS.last_dispatch = ("decode_attention", p)
     return get_backend(nctx.backend).decode_attention(
         q, k_pages, v_pages, page_table, pos, nctx, p,
         pc=pc, softcap=softcap, window=window)

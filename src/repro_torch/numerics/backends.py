@@ -16,6 +16,18 @@ Counterpart of ``repro.numerics.backends``:
              and the gather reference otherwise.  Each kernel wrapper
              dispatches on its tensors' device, so on CPU tensors the
              backend runs the kernels' plain versions.
+
+Two wrappers compose around any base by name, nesting left to right:
+
+  "faulty:<base>"   seeded bit flips on the operands' posit words
+                    (``repro_torch.reliability.faults``), then the base op.
+  "guarded:<base>"  the base op under ABFT checks, sentinels and the
+                    escalation ladder (``repro_torch.reliability.guards``).
+
+Like the reference, neither wrapper defines ``decode_attention``: under
+them paged decode runs the base ``Backend`` gather reference, whose qk/pv
+re-dispatch through the wrappers, so the fused flash-decode kernel is not
+launched on a guarded or faulty path.
 """
 from __future__ import annotations
 
@@ -29,12 +41,36 @@ from repro_torch.core.engine import EulerConfig
 
 
 class Backend:
-    """Op-set protocol; subclasses implement ``dot_general``."""
+    """Op-set protocol.  Subclasses implement ``dot_general`` and
+    ``elementwise``; the named ops default to ``dot_general`` with the
+    canonical dimension numbers."""
 
     name = "base"
 
     def dot_general(self, a, b, dimension_numbers, cfg: EulerConfig):
         raise NotImplementedError
+
+    def elementwise(self, a, b, cfg: EulerConfig):
+        raise NotImplementedError
+
+    def matmul(self, a, b, cfg: EulerConfig):
+        """a @ b: contract a's last dim with b's first."""
+        dn = (((a.ndim - 1,), (0,)), ((), ()))
+        return self.dot_general(a, b, dn, cfg)
+
+    def qk(self, q, k, cfg: EulerConfig):
+        """Attention scores over the last dim: [..., T, D] x [..., S, D]."""
+        nd = q.ndim
+        batch = tuple(range(nd - 2))
+        dn = (((nd - 1,), (nd - 1,)), (batch, batch))
+        return self.dot_general(q, k, dn, cfg)
+
+    def pv(self, p, v, cfg: EulerConfig):
+        """Attention values: [..., T, S] x [..., S, D]."""
+        nd = p.ndim
+        batch = tuple(range(nd - 2))
+        dn = (((nd - 1,), (nd - 2,)), (batch, batch))
+        return self.dot_general(p, v, dn, cfg)
 
     def decode_attention(self, q, k_pages, v_pages, page_table, pos,
                          nctx, path, *, pc=None, softcap=None, window=None):
@@ -58,12 +94,18 @@ class ExactBackend(Backend):
         return _E.euler_dot_general(a, b, dimension_numbers,
                                     cfg.replace(mode="exact"))
 
+    def elementwise(self, a, b, cfg: EulerConfig):
+        return a * b
+
 
 class LaxRefBackend(Backend):
     name = "lax_ref"
 
     def dot_general(self, a, b, dimension_numbers, cfg: EulerConfig):
         return _E.euler_dot_general(a, b, dimension_numbers, cfg)
+
+    def elementwise(self, a, b, cfg: EulerConfig):
+        return _E.ilm_elementwise(a, b, cfg)
 
 
 def _single_contraction(a, b, dimension_numbers):
@@ -124,6 +166,115 @@ class CudaBackend(LaxRefBackend):
             cfg_qk=cfg_qk, cfg_pv=cfg_pv, softcap=softcap)
 
 
+class FaultyBackend(Backend):
+    """Fault-injection wrapper: corrupt posit words, then run the base op.
+
+    When a :class:`repro_torch.reliability.faults.FaultPlan` is active
+    (``faults.inject(plan, key, step)``, which the serving engine wraps
+    around each decode step) and matches the dispatched (layer path, op
+    kind), the selected operand is encoded to posit words, seeded
+    single-bit flips of the plan's bit role are applied, and the corrupted
+    values go to the wrapped backend.  Exact-mode ops are immune."""
+
+    def __init__(self, base: "str | Backend"):
+        self.base = get_backend(base)
+        self.name = f"faulty:{self.base.name}"
+
+    def _corrupt(self, a, b, cfg: EulerConfig):
+        from repro_torch.reliability import faults as _F
+        from . import api as _api
+        ctx = _F.current()
+        if ctx is None or cfg.mode not in ("euler", "posit", "quant_only"):
+            return a, b
+        plan, key, step = ctx
+        op, path = _api.last_dispatch()
+        if not plan.matches(path, op):
+            return a, b
+        if plan.operand in ("a", "both"):
+            a = _F.corrupt(a, cfg, plan, key, step,
+                           salt=_F.call_salt(path, op, "a"))
+        if plan.operand in ("b", "both"):
+            b = _F.corrupt(b, cfg, plan, key, step,
+                           salt=_F.call_salt(path, op, "b"))
+        return a, b
+
+    def dot_general(self, a, b, dimension_numbers, cfg: EulerConfig):
+        a, b = self._corrupt(a, b, cfg)
+        return self.base.dot_general(a, b, dimension_numbers, cfg)
+
+    def matmul(self, a, b, cfg: EulerConfig):
+        a, b = self._corrupt(a, b, cfg)
+        return self.base.matmul(a, b, cfg)
+
+    def qk(self, q, k, cfg: EulerConfig):
+        q, k = self._corrupt(q, k, cfg)
+        return self.base.qk(q, k, cfg)
+
+    def pv(self, p, v, cfg: EulerConfig):
+        p, v = self._corrupt(p, v, cfg)
+        return self.base.pv(p, v, cfg)
+
+    def elementwise(self, a, b, cfg: EulerConfig):
+        a, b = self._corrupt(a, b, cfg)
+        return self.base.elementwise(a, b, cfg)
+
+
+def faulty(base: "str | Backend") -> FaultyBackend:
+    """The fault-injection wrapper around ``base``, registered (memoized)
+    under ``"faulty:<base>"``."""
+    wrapped = FaultyBackend(base)
+    return _BACKENDS.setdefault(wrapped.name, wrapped)
+
+
+class GuardedBackend(Backend):
+    """ABFT guard wrapper: run the base op, verify it, escalate on violation
+    (:func:`repro_torch.reliability.guards.guard_call`).  ``elementwise``
+    has no checksum identity and passes through unguarded."""
+
+    def __init__(self, base: "str | Backend", gcfg=None):
+        from repro_torch.reliability import guards as _G
+        self.base = get_backend(base)
+        self.gcfg = gcfg if gcfg is not None else _G.DEFAULT
+        self.name = f"guarded:{self.base.name}"
+
+    def _guarded(self, kind, a, b, dimension_numbers, cfg):
+        from repro_torch.reliability import guards as _G
+        return _G.guard_call(self.base, kind, a, b, dimension_numbers,
+                             cfg, self.gcfg)
+
+    def dot_general(self, a, b, dimension_numbers, cfg: EulerConfig):
+        return self._guarded("dot_general", a, b, dimension_numbers, cfg)
+
+    def matmul(self, a, b, cfg: EulerConfig):
+        dn = (((a.ndim - 1,), (0,)), ((), ()))
+        return self._guarded("matmul", a, b, dn, cfg)
+
+    def qk(self, q, k, cfg: EulerConfig):
+        nd = q.ndim
+        batch = tuple(range(nd - 2))
+        dn = (((nd - 1,), (nd - 1,)), (batch, batch))
+        return self._guarded("qk", q, k, dn, cfg)
+
+    def pv(self, p, v, cfg: EulerConfig):
+        nd = p.ndim
+        batch = tuple(range(nd - 2))
+        dn = (((nd - 1,), (nd - 2,)), (batch, batch))
+        return self._guarded("pv", p, v, dn, cfg)
+
+    def elementwise(self, a, b, cfg: EulerConfig):
+        return self.base.elementwise(a, b, cfg)
+
+
+def guarded(base: "str | Backend", gcfg=None) -> GuardedBackend:
+    """The ABFT guard wrapper around ``base``, registered (memoized) under
+    ``"guarded:<base>"``; a non-default ``gcfg`` replaces the registered
+    instance (one guard policy per name)."""
+    wrapped = GuardedBackend(base, gcfg)
+    if gcfg is not None:
+        return register_backend(wrapped.name, wrapped)
+    return _BACKENDS.setdefault(wrapped.name, wrapped)
+
+
 _BACKENDS: dict[str, Backend] = {}
 
 
@@ -133,11 +284,18 @@ def register_backend(name: str, backend: Backend) -> Backend:
 
 
 def get_backend(name: "str | Backend") -> Backend:
+    """Look up a backend by name (instances pass through).  ``faulty:`` and
+    ``guarded:`` prefixes resolve (and self-register) on demand, nesting
+    left to right: ``"guarded:faulty:cuda"`` guards a faulted cuda path."""
     if isinstance(name, Backend):
         return name
     try:
         return _BACKENDS[name]
     except KeyError:
+        if name.startswith("faulty:"):
+            return faulty(name.split(":", 1)[1])
+        if name.startswith("guarded:"):
+            return guarded(name.split(":", 1)[1])
         raise KeyError(f"unknown numerics backend {name!r}; "
                        f"available: {sorted(_BACKENDS)}") from None
 

@@ -1,7 +1,8 @@
 """Slot-based continuous-batching serving.
 
-Counterpart of ``repro.serving.engine`` for greedy serving without
-deadlines, precision ladders, guard retries or fault plans.
+Counterpart of ``repro.serving.engine`` for greedy serving, with per-request
+deadlines, the SLO-driven precision ladder, guard-triggered retries and
+live fault plans (durable snapshots and failover are not ported).
 
 * ``ServeEngine`` owns the model's KV cache and exposes the slot
   primitives: ``prefill_slot`` (batch-1 prefill fully overwriting a slot),
@@ -20,18 +21,31 @@ exhaustion surfaces as ``PagePoolOOM``.  The batcher then reclaims retired
 slots' deferred pages, then preempts the youngest-admitted slot (its
 request re-enqueues at the queue front and recomputes), and finally holds
 admission (queue backpressure).
+
+**Fault-tolerant serving.**  ``ServeEngine(levels=[...])`` holds one
+numerics context per precision-ladder level; ``RequestBatcher(slo=...)``
+admits new requests down the ladder under load (``DegradeController``),
+``deadline_ms`` retires late requests with status "timeout", and
+``guard_retry`` re-enqueues a request hit by an unrecovered ``guarded:``
+violation one level higher, or fails it when its retries run out.
+``ServeEngine(fault=...)`` runs every decode step under
+``reliability.faults.inject``; prefill is never corrupted.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
-from typing import Any, Callable
+import time
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.models.layers import Ctx
 from repro_torch.numerics import NumericsContext
+from repro_torch.reliability import faults as _faults
+from repro_torch.reliability.faults import FaultPlan
 from repro_torch.serving.kvcache import PagePoolOOM, PagedKVCache, PagedKVConfig
 
 log = logging.getLogger("repro_torch.serving")
@@ -48,12 +62,27 @@ class ServeEngine:
     def __init__(self, model, params, ctx: Ctx | None = None, *,
                  max_len: int = 2048, batch: int = 8, cache_dtype=None,
                  numerics: NumericsContext | None = None,
+                 fault: FaultPlan | None = None,
+                 levels: "Sequence[NumericsContext] | None" = None,
                  paged: PagedKVConfig | None = None):
         """``numerics`` (policy + backend) overrides whatever the ctx
         carries.  ``paged`` switches the KV cache to the page-pool layout;
         decode then runs through the ``decode_attention`` numerics op (the
         fused flash-decode kernel on the ``cuda`` backend for integer
-        pages)."""
+        pages).
+
+        ``fault``: a live fault plan.  Each decode step runs under
+        ``faults.inject`` with a key folded from the plan's seed and the
+        engine's decode-step counter ``fault_step`` (effective under a
+        ``faulty:<base>`` backend); prefill is never corrupted.
+
+        ``levels``: the precision ladder, ``levels[0]`` first (it overrides
+        ``numerics``), then the cheaper contexts the scheduler demotes to.
+        Slots at different levels decode side by side, each only ever
+        under its own level's numerics; with one level the decode path is
+        the single-context path."""
+        if levels:
+            numerics = levels[0]
         if ctx is None:
             ctx = model.make_ctx()
         if numerics is not None:
@@ -82,6 +111,14 @@ class ServeEngine:
             self.kv = None
             self.cache = model.init_cache(batch, max_len, cache_dtype)
             self._cache1 = model.init_cache(1, max_len, cache_dtype)
+        # the precision ladder: every level reuses the primary ctx with
+        # only the numerics (and its default ecfg) swapped
+        self._ctxs = [ctx] + [
+            dataclasses.replace(ctx, numerics=nc, ecfg=nc.policy.default)
+            for nc in (levels or [])[1:]]
+        self.n_levels = len(self._ctxs)
+        self.fault = fault
+        self.fault_step = 0  # decode-step counter for fault keys
 
     # -- cache lifecycle ------------------------------------------------
 
@@ -113,11 +150,20 @@ class ServeEngine:
             grown.append(p)
         return grown
 
-    def _step(self, gen, tok, pos, done, page_table=None, write_mask=None):
-        """One masked decode step (the reference's scan body)."""
-        logits, _ = self.model.decode_step(
-            self.params, tok, pos, self.cache, self.ctx,
-            page_table=page_table, write_mask=write_mask)
+    def _step(self, gen, tok, pos, done, level: int = 0, cache=None,
+              page_table=None, write_mask=None):
+        """One masked decode step at ladder ``level`` over ``cache`` (the
+        engine's own by default): the reference's scan body."""
+        cache = self.cache if cache is None else cache
+        if self.fault is None:
+            faults_on = contextlib.nullcontext()
+        else:
+            key = _faults.fold_in(self.fault.seed, self.fault_step)
+            faults_on = _faults.inject(self.fault, key, self.fault_step)
+        with faults_on:
+            logits, _ = self.model.decode_step(
+                self.params, tok, pos, cache, self._ctxs[level],
+                page_table=page_table, write_mask=write_mask)
         nxt = torch.argmax(logits, -1).to(torch.int32)
         pad = torch.tensor(gen.pad_id, dtype=torch.int32, device=self.device)
         nxt = torch.where(done, pad, nxt)
@@ -129,14 +175,16 @@ class ServeEngine:
 
     # -- slot-level primitives (used by the scheduler) -------------------
 
-    def prefill_slot(self, slot: int, prompt_tokens) -> int:
+    def prefill_slot(self, slot: int, prompt_tokens, level: int = 0) -> int:
         """Prefill one request into ``slot`` and return its first token.
 
-        Runs a batch-1 prefill on a zero cache and writes it over the
-        slot's whole row (dense) or scatters it into freshly allocated
-        pool pages (paged; the length must be a page multiple).  Raises
-        :class:`PagePoolOOM` (slot unmapped, pool clean) when the pool
-        cannot hold the request plus one growth page."""
+        Runs a batch-1 prefill on a zero cache, under ladder ``level``'s
+        numerics, and writes it over the slot's whole row (dense) or
+        scatters it into freshly allocated pool pages (paged; the length
+        must be a page multiple).  Raises :class:`PagePoolOOM` (slot
+        unmapped, pool clean) when the pool cannot hold the request plus
+        one growth page."""
+        ctx = self._ctxs[level]
         toks = torch.as_tensor(np.asarray(prompt_tokens, np.int32),
                                device=self.device)[None, :]
         if self.kv is not None:
@@ -155,7 +203,7 @@ class ServeEngine:
                 self._ptmpl[Tpad] = tmpl
             else:
                 self.model.reset_cache(tmpl)
-            logits, c1 = self.model.prefill(self.params, toks, self.ctx, tmpl)
+            logits, c1 = self.model.prefill(self.params, toks, ctx, tmpl)
             idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
             for name, pool in self.cache.items():
                 slab = c1[name][:, 0]                 # [L, Tpad, KV, hd]
@@ -164,7 +212,7 @@ class ServeEngine:
                 ).to(pool.dtype)
             return int(torch.argmax(logits[0]))
         self.model.reset_cache(self._cache1)
-        logits, c1 = self.model.prefill(self.params, toks, self.ctx,
+        logits, c1 = self.model.prefill(self.params, toks, ctx,
                                         self._cache1)
         for name, a in self.cache.items():
             a[:, slot] = c1[name][:, 0].to(a.dtype)
@@ -181,25 +229,68 @@ class ServeEngine:
             cap *= 2
         return min(cap, self.kv.n_logical)
 
-    def step_slots(self, gen: GenerationConfig, tok, pos, active):
+    def step_slots(self, gen: GenerationConfig, tok, pos, active,
+                   level=None):
         """One masked decode step over all slots.  ``tok``/``pos``/``active``
         are [B] host arrays; inactive slots are fed as done (emit pad,
-        frozen position).  Returns the emitted [B] tokens (numpy)."""
+        frozen position).  Returns the emitted [B] tokens (numpy); the
+        cache and ``fault_step`` advance on the engine.
+
+        ``level``: optional [B] ladder indices.  When every active slot
+        shares one level this is one step, identical to the level-free
+        call; mixed levels run one step per occupied level with the other
+        levels' slots masked done, so no slot's tokens or cache words are
+        produced by another level's numerics."""
         dev = self.device
         act = np.asarray(active, bool)
+        lvls = (np.zeros(act.shape, np.int32) if level is None
+                else np.asarray(level, np.int32))
+        used = sorted({int(l) for l, a in zip(lvls, act) if a}) or [0]
         tok_t = torch.as_tensor(np.asarray(tok, np.int32), device=dev)
         pos_t = torch.as_tensor(np.asarray(pos, np.int32), device=dev)
-        done = torch.as_tensor(~act, device=dev)
         kw = {}
         if self.kv is not None:
-            # every row writes (mask all-True): done rows land their
-            # pad-token k/v at their frozen position, like dense does
             table = self.kv.table_device(dev)[:, :self._table_cap()]
-            kw = {"page_table": table.contiguous(),
-                  "write_mask": torch.ones(act.shape, dtype=torch.bool,
-                                           device=dev)}
-        nxt, _, _ = self._step(gen, tok_t, pos_t, done, **kw)
-        return nxt.cpu().numpy()
+            kw["page_table"] = table.contiguous()
+        if len(used) == 1:
+            if self.kv is not None:
+                # every row writes (mask all-True): done rows land their
+                # pad-token k/v at their frozen position, like dense does
+                kw["write_mask"] = torch.ones(act.shape, dtype=torch.bool,
+                                              device=dev)
+            nxt, _, _ = self._step(gen, tok_t, pos_t,
+                                   torch.as_tensor(~act, device=dev),
+                                   level=used[0], **kw)
+            self.fault_step += 1
+            return nxt.cpu().numpy()
+        out = None
+        if self.kv is not None:
+            # the pool has no slot axis to merge over, so the levels run
+            # SEQUENTIALLY through it: each level's step writes only its
+            # own slots' pages (the write mask sends the other rows to the
+            # trash page)
+            for lvl in used:
+                sel = torch.as_tensor(act & (lvls == lvl), device=dev)
+                t, _, _ = self._step(gen, tok_t, pos_t, ~sel, level=lvl,
+                                     write_mask=sel, **kw)
+                out = t if out is None else torch.where(sel, t, out)
+        else:
+            # dense: every level steps from the SAME pre-step cache (a
+            # copy), and each slot's row is taken from its own level's copy
+            stepped = []
+            for lvl in used:
+                sel = torch.as_tensor(act & (lvls == lvl), device=dev)
+                c = {k: v.clone() for k, v in self.cache.items()}
+                t, _, _ = self._step(gen, tok_t, pos_t, ~sel, level=lvl,
+                                     cache=c)
+                out = t if out is None else torch.where(sel, t, out)
+                stepped.append((sel, c))
+            for sel, c in stepped:
+                rows = torch.nonzero(sel).reshape(-1)
+                for k, a in self.cache.items():
+                    a[:, rows] = c[k][:, rows]
+        self.fault_step += 1
+        return out.cpu().numpy()
 
 
 @dataclasses.dataclass
@@ -209,7 +300,65 @@ class Request:
     max_new: int
     out: list = dataclasses.field(default_factory=list)
     done: bool = False
-    status: str = "ok"                # ok | rejected
+    deadline_ms: float | None = None  # wall-clock SLO from submit time
+    submit_t: float = 0.0             # batcher-clock timestamp of submit()
+    level: int = 0                    # precision-ladder index (0 = highest)
+    attempts: int = 0                 # guard-triggered re-enqueues so far
+    status: str = "ok"                # ok | timeout | failed | rejected
+
+
+class QueueFullError(RuntimeError):
+    """submit() on a batcher whose queue is at max_queue capacity."""
+
+
+@dataclasses.dataclass(frozen=True)
+class SLOConfig:
+    """Degradation thresholds for SLO-aware precision throttling.
+
+    Every ``queue_hi`` queued requests push newly-admitted slots one level
+    down the engine's precision ladder; a recent-window p99 step latency
+    above ``p99_ms`` adds one more.  Levels clamp to the ladder length, so a
+    1-level engine never degrades (the config is then inert)."""
+
+    queue_hi: int = 8
+    p99_ms: float | None = None
+    window: int = 64              # step-latency samples kept for the p99
+
+    def __post_init__(self):
+        if self.queue_hi <= 0:
+            raise ValueError(f"queue_hi must be > 0, got {self.queue_hi}")
+        if self.window <= 0:
+            raise ValueError(f"window must be > 0, got {self.window}")
+
+
+class DegradeController:
+    """Maps instantaneous load to an admission precision level.
+
+    Pure policy over observations the batcher feeds it (queue depth at
+    admission, per-step wall latency) — it never touches the engine, so the
+    demote-on-admission point stays the single place levels are assigned.
+    """
+
+    def __init__(self, slo: SLOConfig, n_levels: int):
+        self.slo = slo
+        self.n_levels = n_levels
+        self._lat: list[float] = []
+
+    def record_step(self, dt_ms: float):
+        self._lat.append(float(dt_ms))
+        if len(self._lat) > self.slo.window:
+            del self._lat[:len(self._lat) - self.slo.window]
+
+    def p99_ms(self) -> float:
+        if not self._lat:
+            return 0.0
+        return float(np.percentile(np.asarray(self._lat), 99))
+
+    def admission_level(self, queue_depth: int) -> int:
+        lvl = queue_depth // self.slo.queue_hi
+        if self.slo.p99_ms is not None and self.p99_ms() > self.slo.p99_ms:
+            lvl += 1
+        return min(lvl, self.n_levels - 1)
 
 
 @dataclasses.dataclass
@@ -227,12 +376,15 @@ class _RunState:
     tok: np.ndarray           # [B] last emitted token per slot
     pos: np.ndarray           # [B] next cache write position per slot
     active: np.ndarray        # [B] bool
+    level: np.ndarray         # [B] per-slot precision-ladder index
     step: int = 0
     results: dict = dataclasses.field(default_factory=dict)
 
 
-_FRESH_STATS = {"steps": 0, "refills": 0, "truncated": 0, "rejected": 0,
-                "kv_oom": 0, "preempts": 0}
+# ``mixed_steps``: decode steps that ran more than one ladder level
+_FRESH_STATS = {"steps": 0, "refills": 0, "truncated": 0, "timeouts": 0,
+                "guard_retries": 0, "demotions": 0, "mixed_steps": 0,
+                "rejected": 0, "kv_oom": 0, "preempts": 0}
 
 
 class RequestBatcher:
@@ -244,7 +396,17 @@ class RequestBatcher:
     request keeps its own bucket and position, so its tokens equal a
     single-request run's."""
 
-    def __init__(self, engine: ServeEngine, prompt_buckets=(128, 512, 2048)):
+    def __init__(self, engine: ServeEngine, prompt_buckets=(128, 512, 2048),
+                 max_queue: int | None = None, *,
+                 slo: SLOConfig | None = None, guard_retry: int = 0,
+                 clock: Callable[[], float] | None = None):
+        """``max_queue``: admission cap (``submit`` raises
+        :class:`QueueFullError` beyond it).  ``slo``: admit requests at
+        ``DegradeController.admission_level`` of the engine's ladder.
+        ``guard_retry``: re-enqueues per request after an unrecovered
+        ``guarded:`` violation on its row, one level higher each time;
+        past it the request retires "failed".  ``clock``: monotonic
+        seconds for deadlines and step latency (tests pin it)."""
         self.engine = engine
         if engine.kv is not None:
             self.buckets = None  # paged: each prompt padded to its own pages
@@ -255,19 +417,39 @@ class RequestBatcher:
                     f"no prompt bucket fits engine max_len={engine.max_len} "
                     f"(got {tuple(prompt_buckets)})")
             self.buckets = buckets
+        self.max_queue = max_queue
+        self.clock = clock if clock is not None else time.monotonic
+        self.slo = slo
+        self.guard_retry = guard_retry
+        self.controller = (DegradeController(slo, engine.n_levels)
+                           if slo is not None else None)
         self.queue: list[Request] = []
         self._next_rid = 0
         self._admit_seq = 0
-        # ("admit"|"refill"|"done"|"rejected"|"preempt"|"kv_oom", rid, slot, step)
+        # ("admit"|"refill"|"done"|"timeout"|"failed"|"rejected"|"preempt"|
+        #  "kv_oom"|"guard_retry", rid, slot, step)
         self.events: list[tuple] = []
         self.stats = dict(_FRESH_STATS)
         self.statuses: dict[int, str] = {}
 
-    def submit(self, prompt, max_new: int = 32) -> int:
+    def submit(self, prompt, max_new: int = 32,
+               deadline_ms: float | None = None) -> int:
+        """Enqueue a prompt; ``deadline_ms`` is a wall-clock SLO from now: a
+        request not finished by then retires with status "timeout" (with
+        its partial tokens if it was decoding)."""
+        if self.max_queue is not None and len(self.queue) >= self.max_queue:
+            raise QueueFullError(
+                f"queue full ({len(self.queue)} >= max_queue={self.max_queue})")
         rid = self._next_rid
         self._next_rid += 1
-        self.queue.append(Request(rid, np.asarray(prompt, np.int32), max_new))
+        self.queue.append(Request(rid, np.asarray(prompt, np.int32), max_new,
+                                  deadline_ms=deadline_ms,
+                                  submit_t=self.clock()))
         return rid
+
+    def _expired(self, r: Request, now: float) -> bool:
+        return (r.deadline_ms is not None
+                and (now - r.submit_t) * 1000.0 > r.deadline_ms)
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -308,10 +490,12 @@ class RequestBatcher:
         self.stats = dict(_FRESH_STATS)
         self.statuses = {}
         eng.reset_all()
+        eng.fault_step = 0
         st = _RunState(gen=gen if gen is not None else GenerationConfig(),
                        cap_budget=gen is not None, slots=[None] * B,
                        tok=np.zeros(B, np.int32), pos=np.zeros(B, np.int64),
-                       active=np.zeros(B, bool))
+                       active=np.zeros(B, bool),
+                       level=np.zeros(B, np.int32))
         return self._drive(st, on_complete)
 
     def _budget(self, st: _RunState, r: Request) -> int:
@@ -320,19 +504,69 @@ class RequestBatcher:
 
     def _finish(self, st: _RunState, r: Request, s: int, on_complete,
                 status: str = "ok"):
+        """Complete ``r`` with its tokens so far; also the path of requests
+        that never (re)entered a slot (zero budget, expired in the queue,
+        rejected)."""
         r.done = True
         r.status = status
         st.results[r.rid] = np.asarray(r.out, np.int32)
         self.statuses[r.rid] = status
         self.events.append(("done" if status == "ok" else status, r.rid, s,
                             st.step))
+        if status == "timeout":
+            self.stats["timeouts"] += 1
         if on_complete is not None:
             on_complete(r.rid, st.results[r.rid])
 
-    def _retire(self, st: _RunState, s: int, on_complete):
-        self._finish(st, st.slots[s].req, s, on_complete)
+    def _retire(self, st: _RunState, s: int, on_complete,
+                status: str = "ok"):
+        self._finish(st, st.slots[s].req, s, on_complete, status)
         st.slots[s] = None
         st.active[s] = False
+
+    def _expire_slots(self, st: _RunState, on_complete):
+        """Retire every active slot whose deadline has passed, with its
+        partial tokens and status "timeout".  Neighbours are untouched:
+        retire only flips this slot's host-side flag, and the next
+        admission overwrites the slot's cache."""
+        now = self.clock()
+        for s in range(self.engine.batch):
+            if st.slots[s] is not None and self._expired(st.slots[s].req, now):
+                self._retire(st, s, on_complete, status="timeout")
+
+    def _drain_guard_events(self, st: _RunState, on_complete,
+                            prefill_slot: int | None = None):
+        """Re-enqueue every slot an UNRECOVERED guard violation landed on
+        (the op-level ladder already absorbed recovered ones): the request
+        restarts from scratch one precision level higher, at the queue
+        front; after ``guard_retry`` attempts it retires "failed".
+        ``prefill_slot`` attributes batch-1 prefill events to that slot."""
+        from repro_torch.numerics import api as _napi
+        hit: set[int] = set()
+        for ev in _napi.drain_guard_events():
+            if not ev.get("unrecovered"):
+                continue
+            if prefill_slot is not None:
+                hit.add(prefill_slot)
+            else:
+                rows = ev.get("rows") or []
+                hit.update(s for s, f in enumerate(rows[:self.engine.batch])
+                           if f)
+        for s in sorted(hit):
+            if st.slots[s] is None:
+                continue
+            r = st.slots[s].req
+            if r.attempts >= self.guard_retry:
+                self._retire(st, s, on_complete, status="failed")
+                continue
+            r.attempts += 1
+            r.level = max(0, r.level - 1)
+            r.out = []
+            self.events.append(("guard_retry", r.rid, s, st.step))
+            self.stats["guard_retries"] += 1
+            st.slots[s] = None
+            st.active[s] = False
+            self.queue.insert(0, r)
 
     # -- paged-pool pressure handling -----------------------------------
 
@@ -396,6 +630,9 @@ class RequestBatcher:
         eng = self.engine
         while self.queue:
             r = self.queue.pop(0)
+            if self._expired(r, self.clock()):  # dead on arrival at a slot
+                self._finish(st, r, s, on_complete, "timeout")
+                continue
             if self._budget(st, r) <= 0:  # zero-token request: complete empty
                 self._finish(st, r, s, on_complete)
                 continue
@@ -405,13 +642,21 @@ class RequestBatcher:
                 self.stats["rejected"] += 1
                 self._finish(st, r, s, on_complete, "rejected")
                 continue
+            if self.controller is not None and r.attempts == 0:
+                # the SLO controller assigns the admission level; a
+                # guard-retried request keeps its promoted level
+                lvl = self.controller.admission_level(len(self.queue))
+                if lvl > 0:
+                    self.stats["demotions"] += 1
+                r.level = lvl
+            r.level = min(r.level, eng.n_levels - 1)
             packed = self._pack(r)
             try:
-                first = eng.prefill_slot(s, packed)
+                first = eng.prefill_slot(s, packed, level=r.level)
             except PagePoolOOM:
                 self._reclaim_retired(st)
                 try:
-                    first = eng.prefill_slot(s, packed)
+                    first = eng.prefill_slot(s, packed, level=r.level)
                 except PagePoolOOM:
                     # backpressure: requeue and stop admitting until decode
                     # retires slots
@@ -426,11 +671,17 @@ class RequestBatcher:
             st.slots[s] = _Slot(req=r, budget=self._budget(st, r),
                                 seq=self._admit_seq)
             self._admit_seq += 1
+            st.level[s] = r.level
             r.out.append(first)
             st.slots[s].budget -= 1
             st.tok[s] = first
             st.pos[s] = len(packed)
             st.active[s] = True
+            if self.guard_retry:
+                # a violation during THIS batch-1 prefill belongs to slot s
+                self._drain_guard_events(st, on_complete, prefill_slot=s)
+                if st.slots[s] is None:  # re-enqueued (or failed) already
+                    continue
             hit_eos = st.gen.eos_id is not None and first == st.gen.eos_id
             if st.slots[s].budget <= 0 or hit_eos:
                 self._retire(st, s, on_complete)  # done on the prefill token
@@ -450,9 +701,19 @@ class RequestBatcher:
                 break
             if eng.kv is not None:
                 self._grow_pages(st)
-            emitted = eng.step_slots(st.gen, st.tok, st.pos, st.active)
+            if len(set(st.level[st.active].tolist())) > 1:
+                self.stats["mixed_steps"] += 1
+            t0 = self.clock()
+            emitted = eng.step_slots(st.gen, st.tok, st.pos, st.active,
+                                     level=st.level)
+            if self.controller is not None:
+                self.controller.record_step((self.clock() - t0) * 1000.0)
             st.step += 1
             self.stats["steps"] += 1
+            if self.guard_retry:
+                # unrecovered violations tear the slot down BEFORE its
+                # (corrupted) token reaches the request stream
+                self._drain_guard_events(st, on_complete)
             for s in range(B):
                 if st.slots[s] is None:
                     continue
@@ -464,4 +725,5 @@ class RequestBatcher:
                 hit_eos = st.gen.eos_id is not None and t == st.gen.eos_id
                 if st.slots[s].budget <= 0 or hit_eos:
                     self._retire(st, s, on_complete)
+            self._expire_slots(st, on_complete)
         return st.results

@@ -111,6 +111,23 @@ def test_storage_pc_follows_width_and_preference():
     assert TP.storage_pc(torch.bfloat16, TP.BPOSIT16) is None
 
 
+@pytest.mark.parametrize("n", [7, 15, 31])
+def test_leading_run_matches_bit_loop(n, rng):
+    """``leading_run`` (bit length from a float64 frexp) against the plain
+    scan of the top bits it replaces, for both run polarities and several
+    depths: every body for n <= 15, a seeded sample for n = 31."""
+    body = torch.from_numpy(np.arange(1 << n, dtype=np.int64) if n <= 15
+                            else rng.integers(0, 1 << n, 1 << 16))
+    for r0 in ((body >> (n - 1)) & 1, 1 - ((body >> (n - 1)) & 1)):
+        for depth in (2, 5, n):
+            run = torch.zeros_like(body)
+            cont = torch.ones_like(body, dtype=torch.bool)
+            for j in range(depth):
+                cont = cont & (((body >> (n - 1 - j)) & 1) == r0)
+                run = run + cont.to(body.dtype)
+            assert torch.equal(TP.leading_run(body, n, r0, depth), run)
+
+
 @pytest.mark.parametrize("k", [0, 1, 3, 6])
 def test_clear_top_set_bits_exact(k, rng):
     x = rng.integers(0, 1 << 31, size=5000, dtype=np.int64)

@@ -98,6 +98,75 @@ def test_plain_logmac_matches_interpret_kernel(mnk, variant, rng):
                                atol=1e-4)
 
 
+def _decode_words(jpc, rng, shape):
+    """Words over the format's whole N-bit range, with 0 and NaR first."""
+    n = jpc.n_bits
+    w = rng.integers(0, 1 << n, size=shape, dtype=np.uint64).astype(np.uint32)
+    w.reshape(-1)[:2] = [0, 1 << (n - 1)]
+    return w
+
+
+def _as_words(w: np.ndarray) -> torch.Tensor:
+    """uint32 words -> the port's int32 word tensor (same bits)."""
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32).copy())
+
+
+def _assert_bits_equal_outside_ftz(got: np.ndarray, want: np.ndarray):
+    """Bit-identical f32 outside |x| < 2^-120, the band this host flushes to
+    zero in the interpret-mode kernel (``tests/test_kernels.py:39-44``)."""
+    tiny = 2.0 ** -120
+    keep = (np.abs(want) >= tiny) & (np.abs(got) >= tiny)
+    np.testing.assert_array_equal(got[keep].view(np.uint32),
+                                  want[keep].view(np.uint32))
+    assert (np.abs(got[~keep]) < tiny).all() or (got[~keep] == 0).all()
+
+
+@pytest.mark.parametrize("jpc,tpc", FORMATS, ids=IDS)
+@pytest.mark.parametrize("shape", [(37,), (64, 33), (5, 7, 11)])
+def test_decode_matches_interpret_kernel(jpc, tpc, shape, rng):
+    """ops.decode (plain version on the CPU) against the TPU decode kernel
+    in interpret mode; zero and NaR decode to 0.0 in both."""
+    w = _decode_words(jpc, rng, shape)
+    want = np.asarray(JPC.posit_decode(jnp.asarray(w), jpc, block=128,
+                                       interpret=True))
+    got = TOps.decode(_as_words(w), tpc)
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    got = got.numpy()
+    assert got.reshape(-1)[:2].tolist() == [0.0, 0.0]
+    assert want.reshape(-1)[:2].tolist() == [0.0, 0.0]
+    _assert_bits_equal_outside_ftz(got, want)
+
+
+@pytest.mark.parametrize("jpc,tpc", FORMATS, ids=IDS)
+def test_decode_every_pattern_matches_interpret_kernel(jpc, tpc, rng):
+    """Every 8/16-bit pattern; for 32-bit formats 2^16 words drawn over the
+    whole 32-bit range (beyond the 16-bit range the JAX test draws)."""
+    if jpc.n_bits <= 16:
+        w = np.arange(1 << jpc.n_bits, dtype=np.uint32)
+    else:
+        w = _decode_words(jpc, rng, (1 << 16,))
+    want = np.asarray(JPC.posit_decode(jnp.asarray(w), jpc, block=4096,
+                                       interpret=True))
+    _assert_bits_equal_outside_ftz(TOps.decode(_as_words(w), tpc).numpy(),
+                                   want)
+
+
+@pytest.mark.parametrize("jpc,tpc", FORMATS, ids=IDS)
+def test_decode_matches_core_codec(jpc, tpc, rng):
+    """Against the core codec's decode_to_float at the JAX suite's bar
+    (``test_kernels.py:39-44``): rtol 1e-6, NaR and |x| < 2^-120 excluded
+    (the core decode gives NaN for NaR, the kernel 0.0)."""
+    w = _decode_words(jpc, rng, (4096,))
+    got = TOps.decode(_as_words(w), tpc).numpy()
+    for want in (np.asarray(JR.ref_decode(jnp.asarray(w), jpc)),
+                 TP.decode_to_float(torch.from_numpy(w.astype(np.int64)),
+                                    tpc).numpy()):
+        mask = ~np.isnan(want) & (np.abs(want) > 2.0 ** -120)
+        np.testing.assert_allclose(got[mask], want[mask], rtol=1e-6)
+        assert got[np.isnan(want)].tolist() == [0.0] * int(
+            np.isnan(want).sum())
+
+
 def test_plain_logmac_column_chunks_are_exact(rng):
     tc = t_variant(16, "L-21b")
     a = TPC.posit_encode(torch.from_numpy(_rand(rng, (5, 40), 3)), tc.posit)
@@ -217,8 +286,10 @@ def test_cuda_backend_on_cpu_runs_plain_versions():
                                                          dtype=torch.int32),
                            torch.tensor([5], dtype=torch.int32),
                            pc=TP.BPOSIT16, cfg_qk=tc, cfg_pv=tc)
-    assert _build.LAUNCHES == {"posit_encode": 0, "logmac": 0,
-                               "paged_flash_decode": 0}
+    TOps.decode(torch.zeros(8, dtype=torch.int32), TP.BPOSIT16)
+    assert _build.LAUNCHES == {"posit_encode": 0, "posit_decode": 0,
+                               "logmac": 0, "paged_flash_decode": 0}
+    assert all(not v for v in _build.WIDTH_LAUNCHES.values())
 
 
 def test_wrappers_refuse_other_devices():
@@ -228,6 +299,8 @@ def test_wrappers_refuse_other_devices():
         TPC.posit_encode(x, tc.posit)
     with pytest.raises(ValueError):
         TLM.logmac(x.to(torch.int32), x.to(torch.int32), tc)
+    with pytest.raises(ValueError):
+        TOps.decode(x.to(torch.int32), tc.posit)
 
 
 @pytest.mark.cuda
@@ -242,10 +315,17 @@ def test_kernels_match_plain_versions_on_card():
     x = torch.randn(3000, generator=g, device=dev)
     for pc in (TP.POSIT8, TP.BPOSIT16, TP.POSIT32):
         assert bool((TPC.posit_encode(x, pc) == TPC.encode_plain(x, pc)).all())
-    a = TPC.posit_encode(torch.randn(4, 300, generator=g, device=dev),
-                         tc.posit)
-    b = TPC.posit_encode(torch.randn(300, 70, generator=g, device=dev),
-                         tc.posit)
-    torch.testing.assert_close(TLM.logmac(a, b, tc),
-                               TLM.logmac_plain(a, b, tc), rtol=1e-5,
-                               atol=1e-4)
+    w = torch.randint(-(1 << 31), (1 << 31) - 1, (3000,), generator=g,
+                      dtype=torch.int32, device=dev)
+    for pc in (TP.POSIT8, TP.BPOSIT16, TP.POSIT32, TP.BPOSIT32):
+        got, want = TPC.posit_decode(w, pc), TPC.decode_plain(w, pc)
+        assert bool((got.view(torch.int32) == want.view(torch.int32)).all())
+    for width in (8, 16, 32):
+        tc = t_variant(width, "L-21b")
+        a = TPC.posit_encode(torch.randn(4, 300, generator=g, device=dev),
+                             tc.posit)
+        b = TPC.posit_encode(torch.randn(300, 70, generator=g, device=dev),
+                             tc.posit)
+        torch.testing.assert_close(TLM.logmac(a, b, tc),
+                                   TLM.logmac_plain(a, b, tc), rtol=1e-5,
+                                   atol=1e-4)
