@@ -10,11 +10,19 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    shapes of the main path: posit encode (bit-exact, six formats with
    zero/NaR/clamp/subnormal inputs), posit decode (bit-identical f32 on
    six formats: every 8- and 16-bit pattern plus 2^24 random 32-bit
-   words), logmac (P16: M in {4, 32, 128}; P8 and P32: M in {4, 32};
-   against the five gemma2-2b K x N shapes, per-element bound
-   ``1e-5*(|va||vb| + |ra||rb|) + 1e-4``), paged flash-decode (max-abs
+   words), the served P16 format's decode table bit for bit against the
+   plain decode, logmac over every 8- and 16-bit pattern (and 2^20
+   32-bit words) as B with K = 1, equal to the plain version, and
+   logmac at P8, P16 and P32 for M in {1, 4, 5, 16, 17, 31, 32,
+   33} (the small-M kernel up to the crossover M = 32, the tile kernel
+   above it) against the five gemma2-2b K x N shapes and a ragged one
+   (N % 4 != 0, K not a multiple of the split), plus a misaligned B
+   base, per-element bound ``1e-5*(|va||vb| + |ra||rb|) + 1e-4``;
+   paged flash-decode at the serving geometry and at a long context
+   (max_len 4096, positions near 4000; windows None and 4096), max-abs
    <= 1e-3 against the plain version, < 0.05 against the gather
-   reference);
+   reference.  Logmac and paged decode must give the same bits on two
+   launches (no float atomics);
 3. serving gemma2-2b FULL (26 layers, d_model 2304, seeded random
    weights) through ``repro_torch.launch.serve`` with a paged uint16
    posit KV cache on the ``cuda`` backend: 8 requests, batch 4, max_len
@@ -31,7 +39,16 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    --guard`` (the TINY model in posit mode: no kernel) with its asserts;
 3d. the ``ops.encode`` -> ``ops.decode`` codec path on an MLP weight;
 4. each kernel timed with CUDA events (L2 flushed before every launch)
-   beside its plain version, with the least time the card could take.
+   beside its plain version, with the least time the card could take:
+   ``ms`` with the host's issue of the call inside the window, as every
+   earlier slice timed it, and ``device_ms`` with the host run ahead of
+   the device, so the window holds the device's work alone;
+   logmac on the five gemma2-2b shapes at M=4 and at M=16, 32 and 128,
+   with the floor its decode instructions set at the issue rate (SASS of
+   a probe built from the kernel's ``logmac_decode.cuh``), paged decode
+   (the whole call: q's pre-scale and encode, then the three passes) at
+   the serving positions, near the end of max_len 256 and at a 4096
+   context.
 
 Launch counts are reset just before each path (3, 3b, 3c, 3d) and read
 just after; each path asserts the kernels it launches, and the
@@ -43,6 +60,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -70,9 +88,16 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 10, flush=None) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events around
-    each launch; ``flush`` runs before each, outside the timed window)."""
+def time_ms(fn, reps: int = 10, flush=None, device_only: bool = False
+            ) -> float:
+    """Mean time of ``fn`` over ``reps`` calls, from CUDA events recorded
+    around each call (``flush`` runs before each, outside the window).
+
+    By default the window holds the host's issue of the call as well as the
+    device's work (the kernels line's ``ms``, the port's first yardstick).
+    With ``device_only`` a ~1 ms device sleep precedes the start
+    event, so the host has queued the whole call before the device reaches
+    it and the window holds the device's work alone."""
     import torch
     for _ in range(2):
         fn()
@@ -81,6 +106,8 @@ def time_ms(fn, reps: int = 10, flush=None) -> float:
     for _ in range(reps):
         if flush is not None:
             flush()
+        if device_only:
+            torch.cuda._sleep(2_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -89,6 +116,77 @@ def time_ms(fn, reps: int = 10, flush=None) -> float:
         b.synchronize()
         total += a.elapsed_time(b)
     return total / reps
+
+
+def random_words(shape, pc, gen, scale_pow: int = 3):
+    """Posit words (int32, on ``gen``'s device) of pre-scaled randn values
+    spread over 2^[-scale_pow, scale_pow), encoded by the encode kernel."""
+    import torch
+    from repro_torch.core.engine import _pow2_scale
+    from repro_torch.kernels import posit_codec as PC
+    v = torch.randn(shape, generator=gen, device=gen.device)
+    v = v * torch.exp2(torch.randint(-scale_pow, scale_pow, shape,
+                                     generator=gen,
+                                     device=gen.device).to(torch.float32))
+    return PC.posit_encode((v / _pow2_scale(v)).contiguous(), pc)
+
+
+DECODE_PROBE = r"""
+#include "logmac_decode.cuh"
+template <int FMT>
+__global__ void probe(const uint32_t* in, float2* out, euler::Posit pc,
+                      euler::Planes pl) {
+  __shared__ float2 tab[TABLE16];
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float v, r;
+  decode_word<FMT>(in[i], pc, pl, tab, v, r);
+  out[i] = make_float2(v, r);
+}
+__global__ void null_probe(const uint32_t* in, float2* out, euler::Posit pc,
+                           euler::Planes pl) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  out[i] = make_float2(__uint_as_float(in[i]), 0.0f);
+}
+template __global__ void probe<FMT_TABLE8>(const uint32_t*, float2*,
+                                           euler::Posit, euler::Planes);
+template __global__ void probe<FMT_TABLE16>(const uint32_t*, float2*,
+                                            euler::Posit, euler::Planes);
+template __global__ void probe<FMT_P32>(const uint32_t*, float2*,
+                                        euler::Posit, euler::Planes);
+"""
+
+
+def decode_instructions(build_dir, csrc) -> dict:
+    """SASS instructions the small logmac kernel spends decoding one word
+    of each L-21b format (``logmac_decode.cuh``: P8 and P16 through their
+    tables, P32 arithmetically with its knobs as constants): a probe kernel
+    that decodes one word per thread, less a probe that only loads and
+    stores it.  Keys are the word widths."""
+    import re
+    src = os.path.join(build_dir, "decode_probe.cu")
+    cubin = os.path.join(build_dir, "decode_probe.cubin")
+    with open(src, "w") as f:
+        f.write(DECODE_PROBE)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    subprocess.run([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-I", str(csrc), "-o", cubin, src],
+                   check=True, capture_output=True)
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", cubin], check=True,
+                          capture_output=True, text=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur and re.search(r"/\*[0-9a-f]{4}\*/\s+\S", line):
+            counts[cur] += 1
+    base = next(n for k, n in counts.items() if "null_probe" in k)
+    fmt_of = {8: 1, 16: 2, 32: 3}      # FMT_TABLE8, FMT_TABLE16, FMT_P32
+    return {w: next(n for k, n in counts.items()
+                    if k.startswith(f"_Z5probeILi{f}E")) - base
+            for w, f in fmt_of.items()}
 
 
 def profile_drain(eng, card: str) -> None:
@@ -126,6 +224,17 @@ def profile_drain(eng, card: str) -> None:
         f"decode steps, 2 prefills): wall {wall_ms:.1f} ms (profiled), "
         f"kernel time {busy:.1f} ms ({100 * busy / wall_ms:.1f}% of the wall "
         f"window)")
+    ours = {"posit_encode": ("posit_encode_kernel",),
+            "posit_decode": ("posit_decode_kernel",),
+            "logmac": ("logmac_",),
+            "paged_flash_decode": ("pd_q_prep_kernel", "pd_scores_kernel",
+                                   "pd_values_kernel", "pd_combine_kernel")}
+    shares = {}
+    for name, prefixes in ours.items():
+        ms = sum(r[0] for r in rows if r[2].split("<")[0].split("(")[0]
+                 .replace("void ", "").startswith(prefixes))
+        shares[name] = f"{ms:.1f} ms ({100 * ms / busy:.1f}% of kernel time)"
+    log(f"[profile] the port's kernels: {shares}")
     for ms, n, key in rows[:20]:
         log(f"[profile]   {ms:10.3f} ms  {n:6d}x  {key[:90]}")
 
@@ -161,6 +270,16 @@ def main(argv=None) -> int:
     from repro_torch.launch import pin_exact_f32
 
     pin_exact_f32()
+    phase_s: dict[str, float] = {}
+
+    def phase_start(name: str) -> None:
+        """Seconds from here to the next phase's start count to ``name``."""
+        now = time.perf_counter()
+        if phase_s:
+            last = next(reversed(phase_s))
+            phase_s[last] = now - phase_s[last]
+        phase_s[name] = now
+
     dev = torch.device("cuda", 0)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -168,6 +287,7 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
 
+    phase_start("1")
     # ---- phase 1: build ------------------------------------------------
     t0 = time.perf_counter()
     took = _build.build_all()
@@ -193,6 +313,7 @@ def main(argv=None) -> int:
             f"{ {k: v for k, v in _build.WIDTH_LAUNCHES.items() if v} }")
         return got
 
+    phase_start("2")
     # ---- phase 2: kernels against their plain versions ------------------
     specials = torch.tensor(
         [0.0, -0.0, float("nan"), float("inf"), -float("inf"), 1e-40, -1e-40,
@@ -240,48 +361,112 @@ def main(argv=None) -> int:
         f"incl. every 8/16-bit pattern, 0 and NaR (-> 0.0)")
     del words, got, want
 
-    def bits(shape, pc, scale_pow=3):
-        v = torch.randn(shape, generator=gen, device=dev)
-        v = v * torch.exp2(torch.randint(-scale_pow, scale_pow, shape,
-                                         generator=gen,
-                                         device=dev).to(torch.float32))
-        return PC.posit_encode((v / _pow2_scale(v)).contiguous(), pc)
+    def bits(shape, pc):
+        return random_words(shape, pc, gen)
+
+    # the served format's decode table (built on the card by the kernels'
+    # decoder) bit for bit against the plain decode of its 4096 bodies
+    key16 = LM.table16_key(ecfg.posit, ecfg)
+    assert key16 is not None
+    tab = LM._table16(dev, key16).view(4096, 2)
+    bodies = (torch.arange(4096, dtype=torch.int32, device=dev) << 3) | 1
+    tv, tr = LM.decode_planes(bodies, ecfg)
+    for got, want, plane in ((tab[:, 0], tv, "val"), (tab[:, 1], tr, "rem")):
+        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        assert bad == 0, f"P16 decode table: {bad} {plane} entries differ"
+    log(f"[logmac] P16 L-21b decode table {key16}: 4096 entries bit-identical "
+        f"to the plain decode")
+    # every 8- and 16-bit pattern, and 2^20 random 32-bit words (0 and NaR
+    # among them), as a one-row B with K = 1: each output is one product
+    # per plane, so the kernel (small-M, vector and scalar loads) must equal
+    # the plain version exactly
+    for width in (8, 16, 32):
+        wcfg = from_variant(width, "L-21b")
+        if width < 32:
+            row = torch.arange(1 << width, dtype=torch.int32, device=dev)
+        else:
+            row = torch.cat([torch.tensor([0, -(1 << 31)], dtype=torch.int32,
+                                          device=dev),
+                             torch.randint(-(1 << 31), (1 << 31) - 1,
+                                           (1 << 20,), generator=gen,
+                                           dtype=torch.int32, device=dev)])
+        for b in (row[None, :], row[None, :-1]):
+            for M in (1, 4):
+                a = bits((M, 1), wcfg.posit)
+                got = LM.logmac(a, b, wcfg)
+                bad = int((got != LM.logmac_plain(a, b, wcfg)).sum())
+                assert bad == 0, (f"logmac P{width} M={M} over every "
+                                  f"pattern: {bad} outputs differ")
+    log("[logmac] every 8/16-bit pattern and 2^20 32-bit words through B "
+        "(M in (1, 4), N % 4 == 0 and != 0): equal to the plain version")
 
     # P16 is the served width; P8 is the ladder's width and P32 the guard's
-    # escalation width, each encoded by the encode kernel at that width
+    # escalation width, each encoded by the encode kernel at that width.
+    # M: decode batches (1, 4, 5), prefill buckets (16, 32) and their
+    # neighbours, and the crossover to the tile kernel (32 | 33)
+    assert LM.SMALL_M_MAX == 32, LM.SMALL_M_MAX
+    logmac_ms = (1, 4, 5, 16, 17, 31, 32, 33)
+    ragged = (2301, 1155)          # N % 4 != 0, K not a multiple of a split
+    assert ragged[1] % 4 and any(
+        ragged[0] % LM._plan(M, ragged[1], ragged[0]).ks for M in logmac_ms)
     worst = 0.0
-    for width, Ms in ((16, (4, 32, 128)), (8, (4, 32)), (32, (4, 32))):
+
+    def abs_planes(b, wcfg, chunk=16384):
+        """|vb|, |rb| of a (K, N) operand, decoded a column chunk at a time
+        (the plain decode's int64 temporaries of the head stay small)."""
+        vb = torch.empty(b.shape, dtype=torch.float32, device=dev)
+        rb = torch.empty(b.shape, dtype=torch.float32, device=dev)
+        for c0 in range(0, b.shape[1], chunk):
+            v, r = LM.decode_planes(b[:, c0:c0 + chunk], wcfg)
+            vb[:, c0:c0 + chunk] = v.abs()
+            rb[:, c0:c0 + chunk] = r.abs()
+        return vb, rb
+
+    def check_logmac(a, b, wcfg, planes_b, what):
+        got = LM.logmac(a, b, wcfg)
+        again = LM.logmac(a, b, wcfg)
+        assert bool((got.view(torch.int32) == again.view(torch.int32)).all()), \
+            f"logmac {what}: two launches differ"
+        want = LM.logmac_plain(a, b, wcfg)
+        va, ra = LM.decode_planes(a, wcfg)
+        bound = 1e-5 * (va.abs() @ planes_b[0] + ra.abs() @ planes_b[1]) + 1e-4
+        diff = (got - want).abs()
+        assert bool((diff <= bound).all()), f"logmac {what} outside its bound"
+        assert bool(torch.isfinite(got).all()), f"logmac {what} not finite"
+        return float(diff.max())
+
+    for width in (16, 8, 32):
         wcfg = from_variant(width, "L-21b")
-        for M in Ms:
-            for K, N in GEMMA_KN:
-                a, b = bits((M, K), wcfg.posit), bits((K, N), wcfg.posit)
-                got = LM.logmac(a, b, wcfg)
-                want = LM.logmac_plain(a, b, wcfg)
-                va, ra = LM.decode_planes(a, wcfg)
-                ok_all = True
-                for c0 in range(0, N, 16384):
-                    vb, rb = LM.decode_planes(b[:, c0:c0 + 16384], wcfg)
-                    bound = (1e-5 * (va.abs() @ vb.abs() + ra.abs() @ rb.abs())
-                             + 1e-4)
-                    diff = (got[:, c0:c0 + 16384]
-                            - want[:, c0:c0 + 16384]).abs()
-                    ok_all &= bool((diff <= bound).all())
-                    worst = max(worst, float(diff.max()))
-                assert ok_all, (f"logmac P{width} M={M} K={K} N={N} outside "
-                                "its bound")
-                assert bool(torch.isfinite(got).all())
-                del a, b, got, want
-        log(f"[logmac] P{width} L-21b, M in {Ms} x {GEMMA_KN} within the "
-            f"per-element bound (max abs diff so far {worst:.3g})")
+        for K, N in GEMMA_KN + [ragged]:
+            b = bits((K, N), wcfg.posit)
+            planes_b = abs_planes(b, wcfg)
+            for M in logmac_ms:
+                a = bits((M, K), wcfg.posit)
+                worst = max(worst, check_logmac(
+                    a, b, wcfg, planes_b, f"P{width} M={M} K={K} N={N}"))
+            del b, planes_b
+        log(f"[logmac] P{width} L-21b, M in {logmac_ms} x "
+            f"{GEMMA_KN + [ragged]}: within the per-element bound, two "
+            f"launches bit-identical (max abs diff so far {worst:.3g})")
+    # a B operand whose base is not 16-byte aligned takes the scalar loads
+    K, N = 2304, 2304
+    flat = bits((K * N + 1,), ecfg.posit)
+    b = flat[1:].view(K, N)
+    assert b.data_ptr() % 16 != 0
+    planes_b = abs_planes(b, ecfg)
+    for M in (4, 16, 32):
+        worst = max(worst, check_logmac(bits((M, K), ecfg.posit), b, ecfg,
+                                        planes_b, f"P16 M={M} misaligned B"))
+    del flat, b, planes_b
+    log(f"[logmac] misaligned B base (P16, M in (4, 16, 32)): within the "
+        f"bound (max abs diff {worst:.3g})")
     errs["logmac"] = worst
 
-    # paged flash-decode at the serving geometry
+    # paged flash-decode at the serving geometry, then at a long context
     B, KV, G, hd, ps, max_len = 4, 4, 2, 288, 16, 256
-    nlp = max_len // ps
-    pos = torch.tensor([37, 100, 250, 5], dtype=torch.int32, device=dev)
-    num_pages = PD.RESERVED_PAGES + B * nlp
+    pc16 = P.BPOSIT16
 
-    def page_table(pos):
+    def page_table(pos, nlp):
         # real pages for positions 0..pos of each row, NULL_PAGE past them
         tab = torch.full((B, nlp), PD.NULL_PAGE, dtype=torch.int32)
         nxt = PD.RESERVED_PAGES
@@ -289,33 +474,54 @@ def main(argv=None) -> int:
             for j in range(int(pos[r]) // ps + 1):
                 tab[r, j] = nxt
                 nxt += 1
-        assert (tab == PD.NULL_PAGE).any()
         return tab.to(dev)
 
-    table = page_table(pos)
-    pc16 = P.BPOSIT16
-    kf = torch.randn((num_pages, ps, KV, hd), generator=gen, device=dev)
-    vf = torch.randn((num_pages, ps, KV, hd), generator=gen, device=dev)
-    kf[:PD.RESERVED_PAGES] = 0
-    vf[:PD.RESERVED_PAGES] = 0
-    kp = P.to_storage(P.encode_from_float(kf, pc16), pc16).contiguous()
-    vp = P.to_storage(P.encode_from_float(vf, pc16), pc16).contiguous()
-    q = torch.randn((B, 1, KV * G, hd), generator=gen, device=dev)
+    def kv_pool(num_pages):
+        kf = torch.randn((num_pages, ps, KV, hd), generator=gen, device=dev)
+        vf = torch.randn((num_pages, ps, KV, hd), generator=gen, device=dev)
+        kf[:PD.RESERVED_PAGES] = 0
+        vf[:PD.RESERVED_PAGES] = 0
+        return (P.to_storage(P.encode_from_float(kf, pc16), pc16).contiguous(),
+                P.to_storage(P.encode_from_float(vf, pc16), pc16).contiguous())
+
     kw = dict(pc=pc16, cfg_qk=ecfg, cfg_pv=ecfg, softcap=50.0)
-    for window in (None, 4096, 24):
+
+    def check_paged(q, kp, vp, table, pos, window, what):
         got = PD.paged_flash_decode(q, kp, vp, table, pos, window, **kw)
+        again = PD.paged_flash_decode(q, kp, vp, table, pos, window, **kw)
+        assert bool((got.view(torch.int32) == again.view(torch.int32)).all()), \
+            f"paged decode {what}: two launches differ"
         want = PD.paged_flash_decode_plain(q, kp, vp, table, pos, window,
                                            **kw)
         ref = PD.paged_attention_reference(q, kp, vp, table, pos, pc=pc16,
                                            softcap=50.0, window=window)
         d_plain = float((got - want).abs().max())
         d_ref = float((got - ref).abs().max())
-        assert d_plain <= 1e-3, f"paged decode window={window}: {d_plain}"
-        assert d_ref < 0.05, f"paged decode vs reference window={window}: {d_ref}"
+        assert d_plain <= 1e-3, f"paged decode {what}: {d_plain}"
+        assert d_ref < 0.05, f"paged decode vs reference {what}: {d_ref}"
         errs["paged_flash_decode"] = max(errs["paged_flash_decode"], d_plain)
-        log(f"[paged_decode] window={window}: max|kernel-plain|={d_plain:.3g}, "
-            f"max|kernel-reference|={d_ref:.3g}")
+        log(f"[paged_decode] {what}: max|kernel-plain|={d_plain:.3g}, "
+            f"max|kernel-reference|={d_ref:.3g}, two launches bit-identical")
 
+    nlp = max_len // ps
+    pos = torch.tensor([37, 100, 250, 5], dtype=torch.int32, device=dev)
+    table = page_table(pos, nlp)
+    assert bool((table == PD.NULL_PAGE).any())   # unallocated slots too
+    kp, vp = kv_pool(PD.RESERVED_PAGES + B * nlp)
+    q = torch.randn((B, 1, KV * G, hd), generator=gen, device=dev)
+    for window in (None, 4096, 24):
+        check_paged(q, kp, vp, table, pos, window, f"window={window}")
+    long_len = 4096
+    pos_long = torch.tensor([4000, 3990, 4095, 3971], dtype=torch.int32,
+                            device=dev)
+    table_long = page_table(pos_long, long_len // ps)
+    kp_long, vp_long = kv_pool(PD.RESERVED_PAGES + B * long_len // ps)
+    for window in (None, 4096):
+        check_paged(q, kp_long, vp_long, table_long, pos_long, window,
+                    f"max_len {long_len}, pos {pos_long.tolist()}, "
+                    f"window={window}")
+
+    phase_start("3")
     # ---- phase 3: serve gemma2-2b FULL through the launcher -------------
     from repro_torch.launch import faultcamp, serve
     _build.reset_launches()
@@ -373,6 +579,7 @@ def main(argv=None) -> int:
         f"{float((outs['cuda'] - outs['lax_ref']).abs().max()):.3g}")
     del outs, params, m
 
+    phase_start("3b")
     # ---- phase 3b: guarded, laddered serving of gemma2-2b FULL ----------
     # --slo-queue-hi 3: of the first four admissions three see >= 3 queued
     # requests (-> P8) and the fourth sees 2 (-> P16), so the first decode
@@ -442,6 +649,7 @@ def main(argv=None) -> int:
     del rep, eng, logits
     torch.cuda.empty_cache()
 
+    phase_start("3c")
     # ---- phase 3c: the fault-injection campaign entry point --------------
     _build.reset_launches()
     t0 = time.perf_counter()
@@ -452,6 +660,7 @@ def main(argv=None) -> int:
         f"asserts in {time.perf_counter() - t0:.1f}s: "
         f"{json.dumps(camp['summary'], sort_keys=True)}")
 
+    phase_start("3d")
     # ---- phase 3d: the codec path, ops.encode -> ops.decode -------------
     xw = torch.randn((2304, 9216), generator=gen, device=dev)
     xs = (xw / _pow2_scale(xw)).contiguous()
@@ -468,6 +677,7 @@ def main(argv=None) -> int:
         f"max |round trip - w| {float((vals - xs).abs().max()):.3g}")
     del pats, vals, xs
 
+    phase_start("4")
     # ---- phase 4: timings ----------------------------------------------
     flush_buf = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
 
@@ -479,6 +689,8 @@ def main(argv=None) -> int:
     xw = torch.randn((2304, 9216), generator=gen, device=dev)
     n = xw.numel()
     enc_ms = time_ms(lambda: PC.posit_encode(xw, ecfg.posit), flush=flush)
+    enc_dev = time_ms(lambda: PC.posit_encode(xw, ecfg.posit), flush=flush,
+                      device_only=True)
     enc_plain = time_ms(lambda: PC.encode_plain(xw, ecfg.posit), reps=3,
                         flush=flush)
     enc_bytes = n * 4 + n * 4
@@ -487,10 +699,12 @@ def main(argv=None) -> int:
                  "replaces": "src/repro/kernels/posit_codec.py:73",
                  "shape": "f32 [2304, 9216] -> uint32",
                  "bytes": enc_bytes, "flops": 0,
-                 "ms": enc_ms, "plain_ms": enc_plain})
+                 "ms": enc_ms, "device_ms": enc_dev, "plain_ms": enc_plain})
     # decode of the same weight's P16 words: 4 B in and 4 B out per word
     pw = PC.posit_encode(xw, ecfg.posit)
     dec_ms = time_ms(lambda: PC.posit_decode(pw, ecfg.posit), flush=flush)
+    dec_dev = time_ms(lambda: PC.posit_decode(pw, ecfg.posit), flush=flush,
+                      device_only=True)
     dec_plain = time_ms(lambda: PC.decode_plain(pw, ecfg.posit), reps=3,
                         flush=flush)
     rows.append({"name": "posit_decode", "route": "cuda",
@@ -498,63 +712,97 @@ def main(argv=None) -> int:
                  "replaces": "src/repro/kernels/posit_codec.py:77",
                  "shape": "uint32 [2304, 9216] -> f32",
                  "bytes": n * 4 + n * 4, "flops": 0,
-                 "ms": dec_ms, "plain_ms": dec_plain})
+                 "ms": dec_ms, "device_ms": dec_dev, "plain_ms": dec_plain})
     del pw
-    # logmac at decode (M=4) and prefill-bucket (M=32, 128) widths of the
-    # MLP at P16, and at decode width at the ladder's P8 and the guard's P32
-    # (4 B per weight word at every width, so one bound formula)
-    for width, M in ((16, 4), (16, 32), (16, 128), (8, 4), (32, 4)):
-        K, N = 2304, 9216
+    # logmac: every projection shape at decode width (M=4) at P16, the
+    # prefill buckets (M=16, 32) and the tile kernel (M=128) on the MLP
+    # shape, and decode width at the ladder's P8 and the guard's P32 (4 B
+    # per weight word at every width, so one bound formula).  floor_ms: the
+    # SASS instructions that decode the K*N weight words, issued at one per
+    # lane per clock (4 x 32 lanes per SM) at the card's top SM clock
+    instr = decode_instructions(_build.build_dir(), _build.CSRC)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clk_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    log(f"[floor] {card}: SASS instructions per decoded word {instr} "
+        f"(L-21b; P8, P16 by table); {sms} SMs at {clk_mhz:.0f} MHz")
+    mlp = (2304, 9216)
+    shapes = ([(16, 4, *mlp)] + [(16, 4, K, N) for K, N in GEMMA_KN
+                                 if (K, N) != mlp]
+              + [(16, M, *mlp) for M in (16, 32, 128)]
+              + [(8, 4, *mlp), (32, 4, *mlp)])
+    for width, M, K, N in shapes:
         wcfg = from_variant(width, "L-21b")
         a, b = bits((M, K), wcfg.posit), bits((K, N), wcfg.posit)
-        ms = time_ms(lambda: LM.logmac(a, b, wcfg), flush=flush)
-        pms = time_ms(lambda: LM.logmac_plain(a, b, wcfg), reps=3,
+        big = N > 100000
+        ms = time_ms(lambda: LM.logmac(a, b, wcfg), reps=5 if big else 10,
+                     flush=flush)
+        dev_ms = time_ms(lambda: LM.logmac(a, b, wcfg), reps=5 if big else 10,
+                         flush=flush, device_only=True)
+        pms = time_ms(lambda: LM.logmac_plain(a, b, wcfg), reps=2 if big else 3,
                       flush=flush)
+        plan = LM._plan(M, N, K)
         rows.append({"name": "logmac", "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/logmac.cu",
                      "replaces": "src/repro/kernels/logmac.py:136",
-                     "shape": f"P{width} M={M} K={K} N={N}",
+                     "shape": f"P{width} M={M} K={K} N={N} ({plan.kind}, "
+                              f"{plan.blocks(N)} blocks, S={plan.splits})",
                      "bytes": (M * K + K * N + M * N) * 4,
-                     "flops": 4 * M * N * K, "ms": ms, "plain_ms": pms})
-    # the head at decode width
-    a, b = bits((4, 2304), ecfg.posit), bits((2304, 256000), ecfg.posit)
-    ms = time_ms(lambda: LM.logmac(a, b, ecfg), reps=5, flush=flush)
-    pms = time_ms(lambda: LM.logmac_plain(a, b, ecfg), reps=2, flush=flush)
-    rows.append({"name": "logmac", "route": "cuda",
-                 "source": "src/repro_torch/kernels/csrc/logmac.cu",
-                 "replaces": "src/repro/kernels/logmac.py:136",
-                 "shape": "P16 M=4 K=2304 N=256000",
-                 "bytes": (4 * 2304 + 2304 * 256000 + 4 * 256000) * 4,
-                 "flops": 4 * 4 * 256000 * 2304, "ms": ms, "plain_ms": pms})
-    del a, b
-    # paged decode at the serving geometry, window 4096 (local layers)
-    pos_serve = torch.tensor([40, 33, 27, 21], dtype=torch.int32, device=dev)
-    table = page_table(pos_serve)
-    ms = time_ms(lambda: PD.paged_flash_decode(q, kp, vp, table, pos_serve,
-                                               4096, **kw), flush=flush)
-    pms = time_ms(lambda: PD.paged_flash_decode_plain(
-        q, kp, vp, table, pos_serve, 4096, **kw), reps=3, flush=flush)
-    npos = int((pos_serve + 1).sum())            # valid positions this run
-    pages = int(sum(int(p) // ps + 1 for p in pos_serve.tolist()))
-    pd_bytes = (q.numel() * 4 + pages * ps * KV * hd * 2 * 2
-                + B * nlp * 4 + B * 4 + B * KV * G * hd * 4)
-    pd_flops = npos * KV * G * hd * 8
-    rows.append({"name": "paged_flash_decode", "route": "cuda",
-                 "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
-                 "replaces": "src/repro/kernels/paged_decode.py:127",
-                 "shape": f"B=4 KV=4 G=2 hd=288 ps=16 uint16, pos {pos_serve.tolist()}",
-                 "bytes": pd_bytes, "flops": pd_flops,
-                 "ms": ms, "plain_ms": pms})
+                     "flops": 4 * M * N * K, "ms": ms, "device_ms": dev_ms,
+                     "plain_ms": pms,
+                     "floor_ms": instr[width] * K * N
+                     / (sms * 128 * clk_mhz * 1e6) * 1e3})
+        del a, b
+    # paged decode (window 4096, the local layers) at the serving
+    # positions, near the end of max_len 256 and at a 4096 context
+    for max_len_t, pos_t, pool in (
+            (max_len, [40, 33, 27, 21], (kp, vp)),
+            (max_len, [255, 254, 250, 252], (kp, vp)),
+            (long_len, pos_long.tolist(), (kp_long, vp_long))):
+        nlp_t = max_len_t // ps
+        pos_t = torch.tensor(pos_t, dtype=torch.int32, device=dev)
+        table = page_table(pos_t, nlp_t)
+        args = (q, *pool, table, pos_t, 4096)
+        big = nlp_t > 16
+        ms = time_ms(lambda: PD.paged_flash_decode(*args, **kw), flush=flush)
+        dev_ms = time_ms(lambda: PD.paged_flash_decode(*args, **kw),
+                         flush=flush, device_only=True)
+        pms = time_ms(lambda: PD.paged_flash_decode_plain(*args, **kw),
+                      reps=2 if big else 3, flush=flush)
+        npos = int((pos_t + 1).sum())            # valid positions this run
+        pages = int(sum(int(p) // ps + 1 for p in pos_t.tolist()))
+        pd_bytes = (q.numel() * 4 + pages * ps * KV * hd * 2 * 2
+                    + B * nlp_t * 4 + B * 4 + B * KV * G * hd * 4)
+        rows.append({"name": "paged_flash_decode", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
+                     "replaces": "src/repro/kernels/paged_decode.py:127",
+                     "shape": f"B=4 KV=4 G=2 hd=288 ps=16 uint16, max_len "
+                              f"{max_len_t}, pos {pos_t.tolist()}",
+                     "bytes": pd_bytes, "flops": npos * KV * G * hd * 8,
+                     "ms": ms, "device_ms": dev_ms, "plain_ms": pms})
     for r in rows:
         bb = r["bytes"] / HBM_BYTES_PER_S * 1e3
         bo = r["flops"] / FP32_FLOPS * 1e3
         r["bound_ms"] = max(bb, bo)
         r["bound_by"] = "bytes" if bb >= bo else "operations"
-        log(f"[time] {card}: {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
+        extra = ""
+        if "floor_ms" in r:
+            extra += f", decode-instruction floor {r['floor_ms']:.4f} ms"
+        log(f"[time] {card}: {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms "
+            f"host-issued, {r['device_ms']:.4f} ms device time; plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}){extra}")
+
+    phase_start("end")
+    phase_s.pop("end")
+    log(f"[phases] seconds per phase: "
+        f"{ {k: round(v, 1) for k, v in phase_s.items()} }")
 
     kernels = []
+    # each kernel's first row: logmac P16 M=4 at the MLP shape, paged
+    # decode at the serving positions
     for name in ("posit_encode", "posit_decode", "logmac",
                  "paged_flash_decode"):
         r = next(r for r in rows if r["name"] == name)
@@ -562,6 +810,7 @@ def main(argv=None) -> int:
             "name": name, "route": r["route"], "source": r["source"],
             "replaces": r["replaces"], "launches": total_launches[name],
             "max_abs_err": errs[name], "ms": r["ms"],
+            "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,101 @@
+"""Times of the port's logmac and paged-decode kernels, for any
+checkout of the port, so that two versions can be compared in one call.
+
+    python3 scripts/kernel_times.py                    # this checkout
+    python3 scripts/kernel_times.py --src DIR --tag parent
+
+``--src`` names the root of another checkout (its ``src/repro_torch`` is
+imported and its kernels are built under its own ``build/``).  Times
+logmac at P16 L-21b, M=4, on the five gemma2-2b projection shapes and at
+M=16 and 32 on the MLP shape, and one paged flash-decode call at the
+serving geometry (B=4, KV=4, G=2, hd=288, page 16, uint16 words,
+positions 21-40, window 4096), each with the same seeded inputs, as the
+mean of 10 calls timed with CUDA events (L2 flushed first) by
+``chip_smoke.time_ms``: ``ms`` with the host's issue of the call inside
+the window, ``device_ms`` with the host run ahead of the device (the
+device's work alone).  Prints the card's name and power limit, then one
+JSON line.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+# chip_smoke.py's timing helpers, from this checkout; imported before
+# --src goes first on the path (chip_smoke puts this checkout's src there)
+sys.path.insert(0, os.path.join(HERE, ".."))
+from chip_smoke import card_line, random_words, time_ms  # noqa: E402
+
+GEMMA_KN = [(2304, 9216), (2304, 2304), (2304, 1152), (9216, 2304),
+            (2304, 256000)]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=os.path.join(HERE, ".."),
+                    help="root of the checkout whose port is timed")
+    ap.add_argument("--tag", default="this checkout")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, os.path.join(os.path.abspath(args.src), "src"))
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device available", file=sys.stderr)
+        return 2
+    from repro_torch.core import posit as P
+    from repro_torch.core.engine import from_variant
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import logmac as LM
+    from repro_torch.kernels import paged_decode as PD
+
+    card = card_line()
+    print(card, flush=True)
+    _build.build_all()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    flush_buf = torch.empty(64 * 2**20 // 4, device=dev)
+
+    def both(fn):
+        return {"ms": time_ms(fn, flush=flush_buf.zero_),
+                "device_ms": time_ms(fn, flush=flush_buf.zero_,
+                                     device_only=True)}
+
+    def bits(shape, pc):
+        return random_words(shape, pc, gen)
+
+    ecfg = from_variant(16, "L-21b")
+    rows = {}
+    for M, (K, N) in [(4, kn) for kn in GEMMA_KN] + [(16, (2304, 9216)),
+                                                     (32, (2304, 9216))]:
+        a, b = bits((M, K), ecfg.posit), bits((K, N), ecfg.posit)
+        rows[f"logmac P16 M={M} K={K} N={N}"] = both(
+            lambda: LM.logmac(a, b, ecfg))
+        del a, b
+    B, KV, G, hd, ps, nlp = 4, 4, 2, 288, 16, 16
+    pos = torch.tensor([40, 33, 27, 21], dtype=torch.int32, device=dev)
+    table = torch.zeros((B, nlp), dtype=torch.int32)
+    nxt = PD.RESERVED_PAGES
+    for r in range(B):
+        for j in range(int(pos[r]) // ps + 1):
+            table[r, j] = nxt
+            nxt += 1
+    table = table.to(dev)
+    pc16 = P.BPOSIT16
+    kp, vp = (P.to_storage(P.encode_from_float(torch.randn(
+        (PD.RESERVED_PAGES + B * nlp, ps, KV, hd), generator=gen,
+        device=dev), pc16), pc16).contiguous() for _ in range(2))
+    q = torch.randn((B, 1, KV * G, hd), generator=gen, device=dev)
+    rows["paged_flash_decode serving, pos 21-40"] = both(
+        lambda: PD.paged_flash_decode(q, kp, vp, table, pos, 4096, pc=pc16,
+                                      cfg_qk=ecfg, cfg_pv=ecfg, softcap=50.0))
+    print(json.dumps({"tag": args.tag, "card": card, "times": rows,
+                      "kernels_from": os.path.dirname(LM.__file__)}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -32,6 +32,7 @@ if _VERBOSE:
     _NVCC_FLAGS = _NVCC_FLAGS + ["-Xptxas", "-v"]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def build_dir() -> Path:
@@ -99,6 +100,19 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """``symbol`` of ``csrc/<name>.cu``'s library, bound once with
+    ``argtypes`` and an int (cudaError_t) result."""
+    key = (name, symbol)
+    fn = _FUNCS.get(key)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FUNCS[key] = fn
+    return fn
 
 
 def check(err: int, what: str) -> None:

@@ -50,6 +50,9 @@ __device__ __forceinline__ float exp2i(int e) {
 }
 
 __device__ __forceinline__ float pow2(int e) {
+  // a normal 2^e is its exponent field alone, the same value as the
+  // two-factor product below (both factors then lie in [-63, 64])
+  if (e >= -126 && e <= 127) return __uint_as_float((uint32_t)(e + 127) << 23);
   int h1 = floor_div_pow2(e, 1);
   return exp2i(h1) * exp2i(e - h1);
 }
@@ -111,25 +114,26 @@ __device__ __forceinline__ uint32_t encode_f32(float x, Posit pc) {
 }
 
 // posit pattern -> (val, rem) f32 ILM planes.
+//
+// The same function as the fixed-depth scan of decode_planes_raw, in fewer
+// integer instructions (it is the inner loop of logmac and paged decode):
+// zero and NaR are the only words whose (N-1)-bit body is 0; the regime run
+// is a count of leading zeros of the body with r0-runs inverted, capped at
+// rcap; the top `stages` set bits of the mantissa are the lowest set bits
+// of its bit reversal, each cleared by x & (x - 1).
 __device__ __forceinline__ void decode_planes(uint32_t pat, Posit pc, Planes pl,
                                               float* val, float* rem) {
   const int N = pc.N, es = pc.es, W = pc.W(), rcap = pc.rcap();
   uint32_t p = pat & mask32(N);
   uint32_t sign = (p >> (N - 1)) & 1u;
   uint32_t body = sign ? ((0u - p) & mask32(N - 1)) : (p & mask32(N - 1));
-  bool special = (p == 0u) || (p == (1u << (N - 1)));
+  bool special = body == 0u;
 
   uint32_t r0 = (body >> (N - 2)) & 1u;
-  // fixed-depth regime scan: rcap iterations (the constant-depth decoder)
-  int run = 0;
-  bool cont = true;
-  for (int j = 0; j < rcap; ++j) {
-    uint32_t bit = (body >> (N - 2 - j)) & 1u;
-    cont = cont && (bit == r0);
-    run += cont ? 1 : 0;
-  }
-  bool sat = run >= rcap;
-  int rw = sat ? rcap : run + 1;
+  // the body's top bit moved to bit 31; bits equal to r0 become zeros
+  int run = __clz((body ^ (0u - r0)) << (33 - N));
+  run = run < rcap ? run : rcap;
+  int rw = run < rcap ? run + 1 : rcap;
   int k = r0 ? run - 1 : -run;
 
   uint32_t rem_bits = (body << rw) & mask32(N - 1);
@@ -146,12 +150,18 @@ __device__ __forceinline__ void decode_planes(uint32_t pat, Posit pc, Planes pl,
     frac = (frac >> drop) << drop;
   }
   uint32_t mant = (1u << W) | frac;
-  uint32_t rmant = mant;
-  for (int s = 0; s < pl.stages; ++s) {
-    if (rmant) rmant &= ~(1u << (31 - __clz(rmant)));
-  }
+  uint32_t low = __brev(mant);
+  for (int s = 0; s < pl.stages; ++s) low &= low - 1u;
+  uint32_t rmant = __brev(low);
+  // a decoded scale lies in [-rcap*2^es, rcap*2^es - 1]; where all of
+  // that range less W gives normal powers of two (every bounded format),
+  // 2^(scale - W) is its exponent field alone, without a branch
+  const bool normal = -rcap * (1 << es) - W >= -126 &&
+                      rcap * (1 << es) - 1 - W <= 127;
   float sgn = sign ? -1.0f : 1.0f;
-  float unit = sgn * pow2(scale - W);
+  float p2 = normal ? __uint_as_float((uint32_t)(scale - W + 127) << 23)
+                    : pow2(scale - W);
+  float unit = sgn * p2;
   float v = unit * (float)mant;
   float r = unit * (float)rmant;
   *val = special ? 0.0f : v;

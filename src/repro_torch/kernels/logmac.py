@@ -6,7 +6,9 @@ sub-lane truncation, clearing the top ``stages`` set bits, and 2^e built
 as two exponent-field factors.  ``logmac`` multiplies ``(M,K)`` by
 ``(K,N)`` pattern matrices into the f32 ``(M,N)`` "quire" value
 ``sum va*vb - sum ra*rb``: the plain version for CPU tensors, the
-``csrc/logmac.cu`` kernel for CUDA tensors.
+``csrc/logmac.cu`` kernels for CUDA tensors, chosen by :func:`_plan` from
+the shape alone: the split-K small-M kernel for ``M <= SMALL_M_MAX`` (every
+launch of the serving path), the 64x64 tile kernel above it.
 
 As in the TPU kernel (``repro/kernels/logmac.py:144``), the rem dot is
 subtracted only when ``stages > 0`` and the mode is ``euler``.
@@ -14,6 +16,7 @@ subtracted only when ``stages > 0`` and the mode is ``euler``.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -106,6 +109,127 @@ def logmac_plain(a_pat, b_pat, ecfg: EulerConfig,
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 
+# The small-M kernel's geometry (csrc/logmac.cu: SM_BN, SmallShape)
+SMALL_M_MAX = 32          # crossover: the tile kernel takes M above it
+SMALL_BN = 128            # output columns per block
+N_SMS = 132               # streaming multiprocessors of an H100 SXM
+# Two blocks fit on an SM (the kernel's launch bounds; 64-96 KB of shared
+# memory each).  Split-K grids aim at one such wave: blocks that all run at
+# once pay their prologue (P16 table, A's planes) together, and no SM waits
+# on a last partial wave (scripts/logmac_split_sweep.py times every split
+# count; PERF.md has its numbers)
+TARGET_BLOCKS = 2 * N_SMS
+K_ALIGN = 16              # a K-split's rows are a multiple of this
+KS_MIN = 64               # and at least this many
+# S * tiles <= TARGET_BLOCKS wherever S > 1, so the [S, 2, M, N] partials
+# never exceed this
+SCRATCH_MAX_FLOATS = 2 * SMALL_M_MAX * TARGET_BLOCKS * SMALL_BN
+
+
+class LogmacPlan(NamedTuple):
+    kind: str      # "small" (split-K, M <= SMALL_M_MAX) or "tile"
+    bn: int        # output columns per block
+    splits: int    # K-splits S (grid = column tiles x S)
+    ks: int        # K rows per split (the last split may be shorter)
+    mr: int        # rows the small kernel is built for (>= M)
+    cpt: int       # consecutive columns per thread (words per vector load)
+
+    def blocks(self, N: int) -> int:
+        return -(-N // self.bn) * self.splits
+
+    def scratch_floats(self, M: int, N: int) -> int:
+        """Floats of the [S, 2, M, N] partial sums (0 when S == 1)."""
+        return 2 * self.splits * M * N if self.splits > 1 else 0
+
+
+def _plan(M: int, N: int, K: int) -> LogmacPlan:
+    """Which logmac kernel runs an (M,K) x (K,N) product, and its grid.
+
+    Small M: the column tiles alone rarely fill the card (18 blocks at
+    N=2304), so K is split into as many splits as keep the grid within
+    TARGET_BLOCKS, each at least KS_MIN rows.  The head (2000 tiles) runs
+    unsplit."""
+    if M > SMALL_M_MAX:
+        return LogmacPlan("tile", 64, 1, K, 64, 4)
+    mr = next(r for r in (4, 8, 16, 32) if M <= r)
+    cpt = 4 if mr <= 8 else (2 if mr == 16 else 1)
+    want = TARGET_BLOCKS // -(-N // SMALL_BN)
+    if want <= 1 or K < 2 * KS_MIN:
+        return LogmacPlan("small", SMALL_BN, 1, K, mr, cpt)
+    ks = max(KS_MIN, -(-K // (want * K_ALIGN)) * K_ALIGN)
+    return LogmacPlan("small", SMALL_BN, -(-K // ks), ks, mr, cpt)
+
+
+def table16_key(pc: P.PositConfig, ecfg: EulerConfig):
+    """``(es, regime bound, stages, truncation)`` of a 16-bit format whose
+    words the kernels decode through a 4096-entry table, else None.
+
+    A nonzero word's planes depend on its sign and on the body bits that
+    its regime (at most the bound), exponent and kept fraction read; where
+    those add up to at most 12 (P16 L-21b: 3 + 1 + 8), they are the top 12
+    of the 15 body bits, so the table of the bodies ``(i << 3) | 1`` holds
+    every word's planes up to the sign (csrc/logmac_decode.cuh:
+    FMT_TABLE16).  The one place that decides which formats take it."""
+    m = effective_trunc(ecfg.trunc, ecfg.sublane)
+    R = pc.regime_max or 0
+    if pc.n_bits != 16 or R == 0 or m is None or R + pc.es + m > 12:
+        return None
+    return (pc.es, R, ecfg.stages, m)
+
+
+_TABLES16: dict[tuple, torch.Tensor] = {}
+
+
+def _table16(device: torch.device, key: tuple) -> torch.Tensor:
+    """The (val, rem) table of :func:`table16_key`'s format ``key`` on
+    ``device``, built once by the kernels' own decoder (csrc/logmac.cu:
+    logmac_table16): ``[4096 * 2]`` f32, the planes of the bodies
+    ``(i << 3) | 1``."""
+    tab = _TABLES16.get((device, key))
+    if tab is None:
+        tab = torch.empty(4096 * 2, dtype=torch.float32, device=device)
+        fn = _build.function("logmac", "logmac_table16",
+                             [ctypes.c_void_p] + [ctypes.c_int] * 5
+                             + [ctypes.c_void_p])
+        _build.check(fn(tab.data_ptr(), 16, *key, _build.stream_ptr(tab)),
+                     "logmac_table16")
+        torch.cuda.synchronize(device)   # ready for launches on any stream
+        _TABLES16[(device, key)] = tab
+    return tab
+
+
+def _format_args(ecfg: EulerConfig) -> tuple:
+    """The kernels' format arguments: n_bits, es, regime bound, stages,
+    truncation (-1 = none), whether the rem dot is subtracted."""
+    pc = ecfg.posit
+    m = effective_trunc(ecfg.trunc, ecfg.sublane)
+    return (pc.n_bits, pc.es, pc.regime_max or 0, ecfg.stages,
+            -1 if m is None else m, int(subtracts_rem(ecfg)))
+
+
+def _launch_small(a_pat, b_pat, out, plan: LogmacPlan,
+                  ecfg: EulerConfig) -> None:
+    """The small-M kernel, and its split-K reduce when ``plan.splits > 1``,
+    on checked CUDA operands, writing ``out``."""
+    Mr, K = a_pat.shape
+    Nc = b_pat.shape[1]
+    nscr = plan.scratch_floats(Mr, Nc)
+    part = (torch.empty(nscr, dtype=torch.float32, device=a_pat.device)
+            if nscr else None)
+    # vector loads need CPT-word aligned rows and base
+    vec = Nc % plan.cpt == 0 and b_pat.data_ptr() % (4 * plan.cpt) == 0
+    key = table16_key(ecfg.posit, ecfg)
+    tab = _table16(a_pat.device, key) if key is not None else None
+    fn = _build.function("logmac", "logmac_small_launch",
+                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
+                         + [ctypes.c_void_p])
+    _build.check(fn(a_pat.data_ptr(), b_pat.data_ptr(), out.data_ptr(),
+                    part.data_ptr() if part is not None else None,
+                    tab.data_ptr() if tab is not None else None, Mr, Nc, K,
+                    plan.ks, plan.splits, plan.mr, int(vec),
+                    *_format_args(ecfg), _build.stream_ptr(a_pat)), "logmac")
+
+
 def logmac(a_pat: torch.Tensor, b_pat: torch.Tensor,
            ecfg: EulerConfig) -> torch.Tensor:
     """(M,K) x (K,N) posit patterns -> (M,N) f32 ILM product."""
@@ -125,17 +249,16 @@ def logmac(a_pat: torch.Tensor, b_pat: torch.Tensor,
                              f"words (got {t.dtype})")
     if ecfg.mode != "euler":
         raise ValueError(f"logmac kernel runs euler mode, got {ecfg.mode}")
-    pc = ecfg.posit
-    m = effective_trunc(ecfg.trunc, ecfg.sublane)
     out = torch.empty((Mr, Nc), dtype=torch.float32, device=a_pat.device)
-    lib = _build.load("logmac")
-    fn = lib.logmac_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(a_pat.data_ptr(), b_pat.data_ptr(), out.data_ptr(), Mr, Nc, K,
-             pc.n_bits, pc.es, pc.regime_max or 0, ecfg.stages,
-             -1 if m is None else m, int(subtracts_rem(ecfg)),
-             _build.stream_ptr(a_pat))
-    _build.check(err, "logmac")
-    _build.count_launch("logmac", pc.n_bits)
+    plan = _plan(Mr, Nc, K)
+    if plan.kind == "tile":
+        fn = _build.function("logmac", "logmac_launch",
+                             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+                             + [ctypes.c_void_p])
+        _build.check(fn(a_pat.data_ptr(), b_pat.data_ptr(), out.data_ptr(),
+                        Mr, Nc, K, *_format_args(ecfg),
+                        _build.stream_ptr(a_pat)), "logmac")
+    else:
+        _launch_small(a_pat, b_pat, out, plan, ecfg)
+    _build.count_launch("logmac", ecfg.posit.n_bits)
     return out

@@ -14,7 +14,11 @@ layer, addressed through per-slot page tables.
   two-plane QK, softcap, causal+window mask, online softmax, re-encode of
   the probabilities in the pv format, two-plane PV).
 * :func:`paged_flash_decode` — the wrapper: the plain version for CPU
-  tensors, the ``csrc/paged_decode.cu`` kernel for CUDA tensors.
+  tensors, the ``csrc/paged_decode.cu`` kernel for CUDA tensors (q's
+  pre-scale and encode in one launch, then page-parallel passes: each
+  page's probabilities are encoded against the running max of the serial
+  walk, and the pages are combined with the telescoped weights
+  ``exp(m_j - m_last)``; the same function up to f32 reassociation).
 
 Page-table conventions (shared with ``serving/kvcache.py``): page
 ``NULL_PAGE`` (0) is never written, so unallocated table entries gather
@@ -32,8 +36,9 @@ from repro_torch.core.engine import EulerConfig, _pow2_scale
 from repro_torch.core.engine import dot_general as _dot_general
 from repro_torch.core.logmult import effective_trunc
 from . import _build
+from . import logmac as _logmac
 from .logmac import decode_planes_raw, subtracts_rem
-from .posit_codec import encode_body, posit_encode
+from .posit_codec import encode_body
 
 NULL_PAGE = 0   # read-only all-zeros page; target of unallocated table slots
 TRASH_PAGE = 1  # write-only sink page for masked rows; never in a table
@@ -230,27 +235,46 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, pos, window=None, *,
     if hd2 != hd or H % KV or tuple(v_pages.shape) != tuple(k_pages.shape):
         raise ValueError(f"paged_flash_decode: shapes q {tuple(q.shape)}, "
                          f"pages {tuple(k_pages.shape)}/{tuple(v_pages.shape)}")
-    G = H // KV
     nlp = page_table.shape[1]
-    if tuple(page_table.shape) != (B, nlp) or tuple(pos.shape) != (B,):
-        raise ValueError("paged_flash_decode: page_table [B, nlp], pos [B]")
+    if (tuple(page_table.shape) != (B, nlp) or nlp < 1
+            or tuple(pos.shape) != (B,)):
+        raise ValueError("paged_flash_decode: page_table [B, nlp >= 1], "
+                         "pos [B]")
 
-    qs, scl = _q_setup(q, k_pages, cfg_qk)
-    qpat = posit_encode(qs, cfg_qk.posit)          # encode kernel
+    if q.shape[1] != 1:
+        raise ValueError("flash-decode is single-token")
+    G = H // KV
+    ppb = pages_per_block(nlp)
+    nchunk = -(-nlp // ppb)
+    qf = q.reshape(B, H * hd).to(torch.float32).contiguous()
     out = torch.empty((B, KV, G, hd), dtype=torch.float32, device=q.device)
+    # per (b, kv, page): scores [G, ps] and page max [G]; per (b, kv, chunk
+    # of ppb pages): weighted acc [G, hd] and sum [G]; then q's words and
+    # its scale (csrc/paged_decode.cu: Scratch)
+    scratch = torch.empty(B * KV * G * (nlp * (ps + 1) + nchunk * (hd + 1)
+                                        + hd) + 1,
+                          dtype=torch.float32, device=q.device)
     qp, vp = cfg_qk.posit, cfg_pv.posit
     mq = effective_trunc(cfg_qk.trunc, cfg_qk.sublane)
     mv = effective_trunc(cfg_pv.trunc, cfg_pv.sublane)
-    lib = _build.load("paged_decode")
-    fn = lib.paged_decode_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                   + [ctypes.c_float] + [ctypes.c_int] * 13
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    err = fn(qpat.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             page_table.data_ptr(), pos.data_ptr(), scl.data_ptr(),
-             out.data_ptr(), B, KV, G, hd, ps, nlp, _window_int(window), word,
-             float(softcap or 0.0),
+    # one decode table serves the call when the K and V words (cache
+    # format), q and the probabilities all decode as one table format
+    key = _logmac.table16_key(pc, cfg_qk)
+    if key is not None and all(_logmac.table16_key(f, c) == key for f, c in (
+            (qp, cfg_qk), (vp, cfg_pv), (pc, cfg_pv))):
+        tab = _logmac._table16(q.device, key)
+    else:
+        tab = None
+    fn = _build.function("paged_decode", "paged_decode_launch",
+                         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                         + [ctypes.c_float] * 2 + [ctypes.c_int] * 13
+                         + [ctypes.c_void_p])
+    err = fn(qf.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             page_table.data_ptr(), pos.data_ptr(),
+             tab.data_ptr() if tab is not None else None,
+             out.data_ptr(), scratch.data_ptr(), B, KV, G, hd, ps, nlp, ppb,
+             _window_int(window), word, int(cfg_qk.pre_scale),
+             float(softcap or 0.0), hd ** -0.5,
              pc.n_bits, pc.es, pc.regime_max or 0,
              qp.n_bits, qp.es, qp.regime_max or 0, cfg_qk.stages,
              -1 if mq is None else mq,
@@ -260,3 +284,11 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, pos, window=None, *,
     _build.check(err, "paged_flash_decode")
     _build.count_launch("paged_flash_decode", pc.n_bits)
     return out.reshape(B, 1, H * hd)
+
+
+def pages_per_block(nlp: int) -> int:
+    """Pages one block of the kernel walks: 1 up to 64-page tables, so a
+    short context spreads over blocks; more beyond, so a 256-page table
+    runs 64 chunks a (b, kv) row and q's planes and the decode table are
+    loaded once per chunk."""
+    return max(1, nlp // 64)

@@ -20,6 +20,7 @@ from repro_torch.kernels import ops as TOps
 from repro_torch.kernels import paged_decode as TPD
 from repro_torch.kernels import posit_codec as TPC
 from repro_torch.kernels import ref as TR
+from test_torch_kernel_plans import check_redesigned_kernels_on_card
 
 torch.set_num_threads(1)
 
@@ -329,3 +330,5 @@ def test_kernels_match_plain_versions_on_card():
         torch.testing.assert_close(TLM.logmac(a, b, tc),
                                    TLM.logmac_plain(a, b, tc), rtol=1e-5,
                                    atol=1e-4)
+    # the small-M logmac's and paged decode's edge shapes
+    check_redesigned_kernels_on_card(dev)
