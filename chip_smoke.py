@@ -4,11 +4,18 @@
 
 Phases (each asserts; a failed phase exits non-zero and prints no result):
 
-1. the card's name and power limit; build of the four CUDA kernels from
+1. the card's name and power limit; build of the four CUDA sources from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the main path: posit encode (bit-exact, six formats with
-   zero/NaR/clamp/subnormal inputs), posit decode (bit-identical f32 on
+   zero/NaR/clamp/subnormal inputs; the table form the encode kernels
+   run equal to ``encode_f32`` on all 2^32 f32 patterns of seven
+   formats), the fused pow2 pre-scale + encode
+   (its scale bit-equal to torch's ``_pow2_scale``, its words bit-identical
+   to the plain version, at P8, P16 and P32 with and without pre-scale, on
+   the five gemma2-2b weight shapes at the model init's scale, activations
+   at M in {1, 4, 16, 32}, a ragged size, a misaligned base and edge
+   values; two launches bit-identical), posit decode (bit-identical f32 on
    six formats: every 8- and 16-bit pattern plus 2^24 random 32-bit
    words), the served P16 format's decode table bit for bit against the
    plain decode, logmac over every 8- and 16-bit pattern (and 2^20
@@ -23,18 +30,20 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    <= 1e-3 against the plain version, < 0.05 against the gather
    reference.  Logmac and paged decode must give the same bits on two
    launches (no float atomics);
-3. serving gemma2-2b FULL (26 layers, d_model 2304, seeded random
-   weights) through ``repro_torch.launch.serve`` with a paged uint16
-   posit KV cache on the ``cuda`` backend: 8 requests, batch 4, max_len
-   256, max_new 16; encode, logmac and paged flash-decode must launch;
-   then the SMOKE model's logits on the kernels against the reference
-   engine;
+3. the fused kernel's scale against torch's ``_pow2_scale`` for every
+   weight of the seeded FULL model (26 x 7 projections and the head's
+   operand), then serving gemma2-2b FULL (26 layers, d_model 2304, seeded
+   random weights) through ``repro_torch.launch.serve`` with a paged
+   uint16 posit KV cache on the ``cuda`` backend: 8 requests, batch 4,
+   max_len 256, max_new 16; the fused encode (at width 16), logmac and
+   paged flash-decode must launch; then the SMOKE model's logits on the
+   kernels against the reference engine;
 3b. guarded, laddered serving of gemma2-2b FULL through the same launcher
    (``--guard --degrade-ladder 8``, P16 -> P8): every request ``ok``,
-   demotions and mixed-level steps, encode and logmac launched at widths 8
-   and 16, paged flash-decode not launched (the guarded path attends
-   through the gather reference, as the JAX package does), guard checks
-   with zero violations;
+   demotions and mixed-level steps, the fused encode and logmac launched
+   at widths 8 and 16, paged flash-decode not launched (the guarded path
+   attends through the gather reference, as the JAX package does), guard
+   checks with zero violations;
 3c. the fault-injection campaign ``repro_torch.launch.faultcamp --smoke
    --guard`` (the TINY model in posit mode: no kernel) with its asserts;
 3d. the ``ops.encode`` -> ``ops.decode`` codec path on an MLP weight;
@@ -43,7 +52,10 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    ``ms`` with the host's issue of the call inside the window, as every
    earlier slice timed it, and ``device_ms`` with the host run ahead of
    the device, so the window holds the device's work alone;
-   logmac on the five gemma2-2b shapes at M=4 and at M=16, 32 and 128,
+   the fused encode on the five gemma2-2b weight shapes and a decode
+   activation beside the parent route (torch's ``_pow2_scale``, ``/``,
+   the plain encode launch) timed in the same run; logmac on the five
+   gemma2-2b shapes at M=4 and at M=16, 32 and 128,
    with the floor its decode instructions set at the issue rate (SASS of
    a probe built from the kernel's ``logmac_decode.cuh``), paged decode
    (the whole call: q's pre-scale and encode, then the three passes) at
@@ -52,14 +64,16 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
 
 Launch counts are reset just before each path (3, 3b, 3c, 3d) and read
 just after; each path asserts the kernels it launches, and the
-``launches`` of the kernels line sum the four paths.  The line before the
-last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+``launches`` of the kernels line sum the four paths.  ``--profile`` also
+groups torch's own kernels by name and sums the kinds the pow2 pre-scale
+runs.  The line before the last is ``{"kernels": [...]}``; the last line
+is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -75,6 +89,11 @@ FP32_FLOPS = 67e12
 
 GEMMA_KN = [(2304, 2304), (2304, 1152), (2304, 9216), (9216, 2304),
             (2304, 256000)]
+
+# torch kernels of the kinds ``_pow2_scale`` and its divide run: abs, the
+# compare, clamp, log2, where, the sums, exp2, round, the divide, the fill
+PRE_SCALE_KINDS = re.compile(r"abs|log2|where|reduce_kernel|div|clamp|exp2|"
+                             r"round|CompareGT|compare|fill", re.IGNORECASE)
 
 
 def log(msg: str) -> None:
@@ -162,7 +181,6 @@ def decode_instructions(build_dir, csrc) -> dict:
     tables, P32 arithmetically with its knobs as constants): a probe kernel
     that decodes one word per thread, less a probe that only loads and
     stores it.  Keys are the word widths."""
-    import re
     src = os.path.join(build_dir, "decode_probe.cu")
     cubin = os.path.join(build_dir, "decode_probe.cubin")
     with open(src, "w") as f:
@@ -187,6 +205,58 @@ def decode_instructions(build_dir, csrc) -> dict:
     return {w: next(n for k, n in counts.items()
                     if k.startswith(f"_Z5probeILi{f}E")) - base
             for w, f in fmt_of.items()}
+
+
+ENCODE_PROBE = r"""
+#include <cuda_runtime.h>
+#include "posit_common.cuh"
+__global__ void encode_probe(euler::Posit pc, unsigned long long* bad) {
+  __shared__ euler::EncodeEntry tab[256];
+  for (int i = threadIdx.x; i < 256; i += blockDim.x)
+    tab[i] = euler::encode_entry(i, pc);
+  __syncthreads();
+  unsigned long long nbad = 0;
+  for (unsigned long long i = blockIdx.x * blockDim.x + threadIdx.x;
+       i < (1ull << 32); i += (unsigned long long)gridDim.x * blockDim.x) {
+    const uint32_t b = (uint32_t)i;
+    nbad += euler::encode_by_entry(b, tab[(b >> 23) & 0xFFu], pc)
+            != euler::encode_f32(__uint_as_float(b), pc);
+  }
+  atomicAdd(bad, nbad);
+}
+extern "C" int encode_probe_launch(int N, int es, int R,
+                                   unsigned long long* bad) {
+  encode_probe<<<132 * 8, 256>>>(euler::Posit{N, es, R}, bad);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def encode_table_mismatches(build_dir, csrc, formats) -> dict:
+    """Every one of the 2^32 f32 bit patterns through the encode kernels'
+    table form (``encode_entry`` + ``encode_by_entry``) and through
+    ``encode_f32`` on the card: the number of patterns that differ, per
+    format name."""
+    import ctypes
+    import torch
+    src = os.path.join(build_dir, "encode_probe.cu")
+    lib = os.path.join(build_dir, "libencode_probe.so")
+    with open(src, "w") as f:
+        f.write(ENCODE_PROBE)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    subprocess.run([nvcc, "-shared", "-Xcompiler", "-fPIC", "-gencode",
+                    "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                    "-I", str(csrc), "-o", lib, src],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(lib).encode_probe_launch
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = {}
+    for pc in formats:
+        bad = torch.zeros(1, dtype=torch.int64, device="cuda")
+        assert fn(pc.n_bits, pc.es, pc.regime_max or 0, bad.data_ptr()) == 0
+        out[pc.name] = int(bad)
+    return out
 
 
 def profile_drain(eng, card: str) -> None:
@@ -224,19 +294,41 @@ def profile_drain(eng, card: str) -> None:
         f"decode steps, 2 prefills): wall {wall_ms:.1f} ms (profiled), "
         f"kernel time {busy:.1f} ms ({100 * busy / wall_ms:.1f}% of the wall "
         f"window)")
-    ours = {"posit_encode": ("posit_encode_kernel",),
+    # the plain and fused encodes launch the same encode kernel (the
+    # parent tree's plain one was posit_encode_kernel)
+    ours = {"posit_encode(_prescaled)": ("posit_encode_kernel",
+                                         "pe_reduce_kernel",
+                                         "pe_encode_kernel"),
             "posit_decode": ("posit_decode_kernel",),
             "logmac": ("logmac_",),
             "paged_flash_decode": ("pd_q_prep_kernel", "pd_scores_kernel",
                                    "pd_values_kernel", "pd_combine_kernel")}
     shares = {}
+    mine = set()
     for name, prefixes in ours.items():
-        ms = sum(r[0] for r in rows if r[2].split("<")[0].split("(")[0]
-                 .replace("void ", "").startswith(prefixes))
+        hit = [r for r in rows if r[2].split("<")[0].split("(")[0]
+               .replace("void ", "").startswith(prefixes)]
+        mine.update(r[2] for r in hit)
+        ms = sum(r[0] for r in hit)
         shares[name] = f"{ms:.1f} ms ({100 * ms / busy:.1f}% of kernel time)"
     log(f"[profile] the port's kernels: {shares}")
+    # torch's own kernels, and among them the kinds the pow2 pre-scale
+    # runs (other callers of the same kinds are counted with them)
+    torch_rows = [r for r in rows if r[2] not in mine]
+    pre = [r for r in torch_rows if PRE_SCALE_KINDS.search(r[2])]
+    t_ms = sum(r[0] for r in torch_rows)
+    p_ms, p_n = sum(r[0] for r in pre), sum(r[1] for r in pre)
+    log(f"[profile] torch's kernels: {t_ms:.1f} ms over "
+        f"{sum(r[1] for r in torch_rows)} launches ({100 * t_ms / busy:.1f}% "
+        f"of kernel time); pre-scale kinds ({PRE_SCALE_KINDS.pattern}): "
+        f"{p_ms:.1f} ms over {p_n} launches ({100 * p_ms / busy:.1f}%)")
     for ms, n, key in rows[:20]:
-        log(f"[profile]   {ms:10.3f} ms  {n:6d}x  {key[:90]}")
+        tag = "pre" if PRE_SCALE_KINDS.search(key) and key not in mine else ""
+        log(f"[profile]   {ms:10.3f} ms  {n:6d}x {tag:3s} {key[:90]}")
+    log("[profile] " + json.dumps({
+        "wall_ms": wall_ms, "kernel_ms": busy, "ours": shares,
+        "torch_ms": t_ms, "pre_scale_ms": p_ms, "pre_scale_launches": p_n,
+        "card": card}))
 
 
 def main(argv=None) -> int:
@@ -300,8 +392,8 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     ecfg = from_variant(16, "L-21b")
-    errs = {"posit_encode": 0.0, "posit_decode": 0.0, "logmac": 0.0,
-            "paged_flash_decode": 0.0}
+    errs = {"posit_encode": 0.0, "posit_encode_prescaled": 0.0,
+            "posit_decode": 0.0, "logmac": 0.0, "paged_flash_decode": 0.0}
     total_launches = dict.fromkeys(errs, 0)
 
     def path_launches(what: str) -> dict:
@@ -335,7 +427,112 @@ def main(argv=None) -> int:
         errs["posit_encode"] = max(errs["posit_encode"], float(diff.max()))
     log(f"[encode] bit-exact on 6 formats, {x.numel()} inputs incl. "
         f"zero/NaR/clamp/subnormal")
-    del x
+    del x, got, want
+    # the kernels' table form against encode_f32 on every f32 pattern
+    formats = (P.POSIT8, P.BPOSIT8, P.POSIT16, P.BPOSIT16, P.POSIT32,
+               P.BPOSIT32, P.PositConfig(16, 2, None))
+    bad = encode_table_mismatches(_build.build_dir(), _build.CSRC, formats)
+    assert not any(bad.values()), f"encode table form differs: {bad}"
+    log(f"[encode] table form equal to encode_f32 on all 2^32 f32 patterns "
+        f"of {len(formats)} formats")
+
+    # the fused pow2 pre-scale + encode: s bit-equal to torch's
+    # _pow2_scale, words bit-identical to the plain version, two launches
+    # the same bits
+    def check_prescaled(x, pc, pre_scale, what, chunk=1 << 25):
+        w, s = PC.posit_encode_prescaled(x, pc, pre_scale)
+        w2, s2 = PC.posit_encode_prescaled(x, pc, pre_scale)
+        want_s = (_pow2_scale(x) if pre_scale
+                  else torch.ones((), device=dev))
+        assert float(s) == float(want_s) == float(s2), (
+            f"fused encode {what} {pc.name}: scale {float(s)} != "
+            f"{float(want_s)}")
+        assert bool((w == w2).all()), f"fused encode {what}: launches differ"
+        flat, wf = x.reshape(-1), w.reshape(-1)
+        for c0 in range(0, flat.numel(), chunk):   # the plain int64 codec
+            xs = flat[c0:c0 + chunk]               # in chunks (the head)
+            want = PC.encode_plain(xs / want_s if pre_scale else xs, pc)
+            got = wf[c0:c0 + chunk]
+            bad = int((got != want).sum())
+            assert bad == 0, f"fused encode {what} {pc.name}: {bad} words"
+            if got.numel():
+                # largest difference of the words read as unsigned patterns
+                diff = ((got.long() & 0xFFFFFFFF)
+                        - (want.long() & 0xFFFFFFFF)).abs()
+                errs["posit_encode_prescaled"] = max(
+                    errs["posit_encode_prescaled"], float(diff.max()))
+        s_err = (0.0 if float(s) == float(want_s)    # also s = want_s = inf
+                 else abs(float(s) - float(want_s)))
+        errs["posit_encode_prescaled"] = max(errs["posit_encode_prescaled"],
+                                             s_err)
+        return float(s)
+
+    # the weights at the model init's scale: d_in^-0.5, the embedding 0.02
+    fused_in = {f"weight [{K}, {N}]": torch.randn(
+        (K, N), generator=gen, device=dev)
+        * (0.02 if N > 100000 else K ** -0.5) for K, N in GEMMA_KN}
+    for M in (1, 4, 16, 32):
+        for K in (2304, 9216):
+            fused_in[f"activation [{M}, {K}]"] = torch.randn(
+                (M, K), generator=gen, device=dev) * 3.0
+    ragged = torch.randn(2304 * 1155 - 3, generator=gen, device=dev)
+    fused_in[f"ragged [{ragged.numel()}]"] = ragged * torch.exp2(torch.randint(
+        -20, 20, ragged.shape, generator=gen, device=dev).float())
+    base = torch.randn(2304 * 2304 + 1, generator=gen, device=dev)
+    fused_in["misaligned base [2304*2304]"] = base[1:]
+    assert base[1:].data_ptr() % 16 != 0
+    edge = torch.randn(100000, generator=gen, device=dev) * 1024.0
+    edge[:12] = torch.tensor([0.0, -0.0, float("nan"), 1e-40, -1e-40,
+                              2.0 ** -126, 2.0 ** -120, 3e38, -3e38, 1e-30,
+                              float("nan"), 0.0])
+    fused_in["edge values"] = edge
+    fused_in["all zero"] = torch.zeros(1000, device=dev)
+    fused_in["with Inf"] = torch.tensor([1.0, float("inf"), -2.0, 0.5],
+                                        device=dev)
+    scales = {}
+    for pc in (P.POSIT8, P.BPOSIT8, P.POSIT16, P.BPOSIT16, P.POSIT32,
+               P.BPOSIT32):
+        for pre_scale in (True, False):
+            for what, xin in fused_in.items():
+                if "256000" in what and pc not in (P.BPOSIT16,):
+                    continue        # the head's 2.36 GB at the served format
+                s = check_prescaled(xin, pc, pre_scale, what)
+                if pre_scale:
+                    scales[what] = s
+    assert scales["all zero"] == 1.0 and scales["with Inf"] == float("inf")
+    log(f"[encode_prescaled] scale bit-equal to torch's _pow2_scale and "
+        f"words bit-identical on 6 formats with and without pre-scale, two "
+        f"launches the same bits: {len(fused_in)} inputs (the head at "
+        f"bposit16 only); scales {scales}")
+    del fused_in, ragged, base, edge
+    # next to a .5 tie of the mean log2 (the seeded weights' own lies about
+    # 0.0013 from one): the kernel sums in f64, torch's _pow2_scale in f32,
+    # so within the f32 sum's error of a tie the two may round apart.  The
+    # kernel's scale must be the one of the f64 mean of the f32 log2 terms;
+    # torch's is reported beside it.
+    def mean_lg(x):
+        ax = x.abs()
+        return float(torch.log2(ax[ax > 0]).double().mean())
+
+    w0 = torch.randn((2304, 2304), generator=gen, device=dev) * 2304 ** -0.5
+    m0 = mean_lg(w0)
+    tie = int(m0 // 1) + 0.5
+    near = []
+    for d in (1e-3, 1e-4, 1e-5, -1e-5, -1e-4, -1e-3):
+        xt = (w0 * 2.0 ** (tie - m0 + d)).contiguous()
+        m = mean_lg(xt)
+        _, s = PC.posit_encode_prescaled(xt, ecfg.posit)
+        want = 2.0 ** round(m)          # round half even, as rintf
+        torch_s = float(_pow2_scale(xt))
+        assert float(s) == want, (f"fused encode next to a tie: mean "
+                                  f"{m} -> {float(s)}, want {want}")
+        near.append({"mean_minus_tie": m - tie, "s": float(s),
+                     "torch_s": torch_s})
+    log(f"[encode_prescaled] next to the tie {tie} of the mean log2: the "
+        f"scale follows the f64 mean on {len(near)} inputs, torch's f32 "
+        f"_pow2_scale agrees on "
+        f"{sum(r['s'] == r['torch_s'] for r in near)}: {near}")
+    del w0, xt
 
     # posit decode: every 8- and 16-bit pattern, 2^24 random 32-bit words
     # (with 0 and NaR); the kernel masks each word to its format's N bits
@@ -523,7 +720,26 @@ def main(argv=None) -> int:
 
     phase_start("3")
     # ---- phase 3: serve gemma2-2b FULL through the launcher -------------
+    # first the fused kernel's scale of every weight the served model (the
+    # same config and seed) contracts: 26 x 7 projections and the head's
+    # operand, the tied embedding transposed as the cuda route lays it out
+    from repro_torch.configs import gemma2_2b
     from repro_torch.launch import faultcamp, serve
+    from repro_torch.models.transformer import Model
+    full = Model(gemma2_2b.FULL, device=dev)
+    fparams = full.init(0)
+    weights = [p["w"] for layer in fparams["layers"]
+               for blk in (layer["attn"], layer["mlp"]) for p in blk.values()
+               if "w" in p]
+    weights.append(fparams["embed"]["e"].t().contiguous())
+    assert len(weights) == 26 * 7 + 1, len(weights)
+    for w in weights:
+        _, s = PC.posit_encode_prescaled(w, ecfg.posit)
+        assert float(s) == float(_pow2_scale(w)), (tuple(w.shape), float(s))
+    log(f"[weights] fused scale bit-equal to torch's _pow2_scale on all "
+        f"{len(weights)} weights of the seeded FULL model")
+    del full, fparams, weights, w
+    torch.cuda.empty_cache()
     _build.reset_launches()
     rep = serve.main(["--arch", "gemma2-2b", "--full", "--paged",
                       "--page-size", "16", "--cache-dtype", "uint16",
@@ -535,8 +751,9 @@ def main(argv=None) -> int:
     assert rep["n_layers"] == 26 and rep["d_model"] == 2304, rep["arch"]
     assert rep["tokens"] == 128, rep["tokens"]
     assert rep["refills"] >= 1, rep["refills"]
-    for name in ("posit_encode", "logmac", "paged_flash_decode"):
+    for name in ("posit_encode_prescaled", "logmac", "paged_flash_decode"):
         assert launches[name] > 0, f"kernel {name} was not launched in serving"
+    assert rep["launches_by_width"]["posit_encode_prescaled"].get(16, 0) > 0
     eng = rep["engine"]
     first = next(iter(rep["results"].values()))
     logits, _ = eng.model.prefill(
@@ -559,9 +776,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # SMOKE logits: the kernels against the reference engine on the card
-    from repro_torch.configs import gemma2_2b
     from repro_torch.models.layers import Ctx
-    from repro_torch.models.transformer import Model
     from repro_torch.numerics import NumericsContext
     ids = torch.randint(0, gemma2_2b.SMOKE.vocab, (2, 16), generator=gen,
                         device=dev)
@@ -600,7 +815,7 @@ def main(argv=None) -> int:
     assert rep["tokens"] == 24, rep["tokens"]
     assert rep["demotions"] > 0, rep["demotions"]
     assert rep["mixed_steps"] > 0, "no decode step ran both ladder levels"
-    for name in ("posit_encode", "logmac"):
+    for name in ("posit_encode_prescaled", "logmac"):
         for w in (8, 16):
             assert by_width[name].get(w, 0) > 0, (
                 f"{name} not launched at width {w}: {by_width[name]}")
@@ -700,6 +915,46 @@ def main(argv=None) -> int:
                  "shape": "f32 [2304, 9216] -> uint32",
                  "bytes": enc_bytes, "flops": 0,
                  "ms": enc_ms, "device_ms": enc_dev, "plain_ms": enc_plain})
+    # the fused pre-scale + encode at the five weight shapes (the model
+    # init's scale) and a decode activation, beside the parent route
+    # (torch's _pow2_scale, the divide, the plain encode launch); 12 B a
+    # value: x read twice, the words written once
+    def parent_route(x):
+        return PC.posit_encode((x / _pow2_scale(x)).contiguous(), ecfg.posit)
+
+    for K, N in [(2304, 9216)] + [kn for kn in GEMMA_KN
+                                  if kn != (2304, 9216)] + [(4, 2304)]:
+        big = N > 100000
+        xf = torch.randn((K, N), generator=gen, device=dev) * (
+            0.02 if big else (1.0 if K == 4 else K ** -0.5))
+        nv = xf.numel()
+
+        def fused():
+            return PC.posit_encode_prescaled(xf, ecfg.posit)
+
+        reps = 5 if big else 10
+        ms = time_ms(fused, reps=reps, flush=flush)
+        dev_ms = time_ms(fused, reps=reps, flush=flush, device_only=True)
+        par_ms = time_ms(lambda: parent_route(xf), reps=reps, flush=flush)
+        par_dev = time_ms(lambda: parent_route(xf), reps=reps, flush=flush,
+                          device_only=True)
+        # the plain int64 codec of the head's 590 M values does not fit
+        pms = None if big else time_ms(
+            lambda: PC.encode_prescaled_plain(xf, ecfg.posit), reps=3,
+            flush=flush)
+        plan = PC._encode_plan(nv)
+        rows.append({"name": "posit_encode_prescaled", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/posit_encode.cu",
+                     "replaces": "src/repro/kernels/posit_codec.py:73 and "
+                                 "src/repro/core/engine.py:135",
+                     "shape": f"f32 [{K}, {N}] -> (uint32, s) ("
+                              f"{plan.reduce_blocks} + "
+                              f"{plan.encode_blocks} blocks); parent route {par_ms:.4f} ms "
+                                f"host-issued, {par_dev:.4f} ms device",
+                     "bytes": 12 * nv, "flops": 0, "ms": ms,
+                     "device_ms": dev_ms, "plain_ms": pms,
+                     "parent_ms": par_ms, "parent_device_ms": par_dev})
+        del xf
     # decode of the same weight's P16 words: 4 B in and 4 B out per word
     pw = PC.posit_encode(xw, ecfg.posit)
     dec_ms = time_ms(lambda: PC.posit_decode(pw, ecfg.posit), flush=flush)
@@ -790,10 +1045,11 @@ def main(argv=None) -> int:
         extra = ""
         if "floor_ms" in r:
             extra += f", decode-instruction floor {r['floor_ms']:.4f} ms"
+        plain = ("not measured" if r["plain_ms"] is None
+                 else f"{r['plain_ms']:.4f} ms")
         log(f"[time] {card}: {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms "
             f"host-issued, {r['device_ms']:.4f} ms device time; plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}){extra}")
+            f"{plain}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}){extra}")
 
     phase_start("end")
     phase_s.pop("end")
@@ -801,10 +1057,10 @@ def main(argv=None) -> int:
         f"{ {k: round(v, 1) for k, v in phase_s.items()} }")
 
     kernels = []
-    # each kernel's first row: logmac P16 M=4 at the MLP shape, paged
-    # decode at the serving positions
-    for name in ("posit_encode", "posit_decode", "logmac",
-                 "paged_flash_decode"):
+    # each kernel's first row: the encodes and logmac P16 M=4 at the MLP
+    # shape, paged decode at the serving positions
+    for name in ("posit_encode", "posit_encode_prescaled", "posit_decode",
+                 "logmac", "paged_flash_decode"):
         r = next(r for r in rows if r["name"] == name)
         kernels.append({
             "name": name, "route": r["route"], "source": r["source"],

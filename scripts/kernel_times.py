@@ -1,15 +1,21 @@
-"""Times of the port's logmac and paged-decode kernels, for any
+"""Times of the port's encode, logmac and paged-decode kernels, for any
 checkout of the port, so that two versions can be compared in one call.
 
     python3 scripts/kernel_times.py                    # this checkout
     python3 scripts/kernel_times.py --src DIR --tag parent
 
 ``--src`` names the root of another checkout (its ``src/repro_torch`` is
-imported and its kernels are built under its own ``build/``).  Times
-logmac at P16 L-21b, M=4, on the five gemma2-2b projection shapes and at
-M=16 and 32 on the MLP shape, and one paged flash-decode call at the
-serving geometry (B=4, KV=4, G=2, hd=288, page 16, uint16 words,
-positions 21-40, window 4096), each with the same seeded inputs, as the
+imported and its kernels are built under its own ``build/``).  Times an
+operand's pow2 pre-scale and encode at the five gemma2-2b weight shapes
+(the model init's scale) and a decode activation [4, 2304]: the fused
+``posit_encode_prescaled`` where the checkout has it, and the parent
+route (torch's ``_pow2_scale``, the divide, ``posit_encode``) and the
+plain ``posit_encode`` in every checkout, and, but for the head, the plain
+encode's device time after a read of x (does the fused call's second read
+of x reach HBM?); logmac at P16 L-21b, M=4, on
+the five gemma2-2b projection shapes and at M=16 and 32 on the MLP
+shape, and one paged flash-decode call at the serving geometry (B=4,
+KV=4, G=2, hd=288, page 16, uint16 words, positions 21-40, window 4096), each with the same seeded inputs, as the
 mean of 10 calls timed with CUDA events (L2 flushed first) by
 ``chip_smoke.time_ms``: ``ms`` with the host's issue of the call inside
 the window, ``device_ms`` with the host run ahead of the device (the
@@ -45,10 +51,11 @@ def main(argv=None) -> int:
         print("kernel_times: no CUDA device available", file=sys.stderr)
         return 2
     from repro_torch.core import posit as P
-    from repro_torch.core.engine import from_variant
+    from repro_torch.core.engine import _pow2_scale, from_variant
     from repro_torch.kernels import _build
     from repro_torch.kernels import logmac as LM
     from repro_torch.kernels import paged_decode as PD
+    from repro_torch.kernels import posit_codec as PC
 
     card = card_line()
     print(card, flush=True)
@@ -68,6 +75,31 @@ def main(argv=None) -> int:
 
     ecfg = from_variant(16, "L-21b")
     rows = {}
+    fused = getattr(PC, "posit_encode_prescaled", None)
+    for K, N in GEMMA_KN + [(4, 2304)]:
+        x = torch.randn((K, N), generator=gen, device=dev) * (
+            0.02 if N > 100000 else (1.0 if K == 4 else K ** -0.5))
+        rows[f"parent route f32 [{K}, {N}]"] = both(
+            lambda: PC.posit_encode((x / _pow2_scale(x)).contiguous(),
+                                    ecfg.posit))
+        rows[f"posit_encode f32 [{K}, {N}]"] = both(
+            lambda: PC.posit_encode(x, ecfg.posit))
+        if fused is not None:
+            rows[f"encode_prescaled f32 [{K}, {N}]"] = both(
+                lambda: fused(x, ecfg.posit))
+        if N < 100000:
+            # does a full read of x leave it in the 50 MB L2 for the next
+            # pass, as the reduce launch leaves it for the encode launch?
+            # The plain encode's device time after an L2 flush against
+            # after a flush and a read of x (torch.sum): the difference is
+            # the time its read of x spends at HBM (the 85 MB shapes, which
+            # cannot stay, are the control)
+            rows[f"posit_encode after a read of x f32 [{K}, {N}]"] = {
+                "device_ms": time_ms(
+                    lambda: PC.posit_encode(x, ecfg.posit),
+                    flush=lambda: (flush_buf.zero_(), x.sum()),
+                    device_only=True)}
+        del x
     for M, (K, N) in [(4, kn) for kn in GEMMA_KN] + [(16, (2304, 9216)),
                                                      (32, (2304, 9216))]:
         a, b = bits((M, K), ecfg.posit), bits((K, N), ecfg.posit)

@@ -122,10 +122,11 @@ def check(err: int, what: str) -> None:
 
 
 # Launch counts: each wrapper adds one where it launches its kernel, and
-# nowhere else (a plain-version call on a CPU tensor does not count).
+# nowhere else (a plain-version call on a CPU tensor does not count); a
+# wrapper call counts one launch however many kernels it starts.
 # ``WIDTH_LAUNCHES`` splits the same launches by posit word width.
-LAUNCHES = {"posit_encode": 0, "posit_decode": 0, "logmac": 0,
-            "paged_flash_decode": 0}
+LAUNCHES = {"posit_encode": 0, "posit_encode_prescaled": 0,
+            "posit_decode": 0, "logmac": 0, "paged_flash_decode": 0}
 WIDTH_LAUNCHES: dict[str, dict[int, int]] = {k: {} for k in LAUNCHES}
 
 

@@ -2,6 +2,7 @@
 //
 // Line-for-line counterparts of the JAX kernel bodies:
 //   encode_f32     <- repro/kernels/posit_codec.py  encode_body
+//                     (and encode_entry + encode_by_entry, its table form)
 //   decode_planes  <- repro/kernels/logmac.py       decode_planes_raw
 //
 // Every shift is kept inside [0, 31] (a 32-bit shift by >= 32 is undefined
@@ -110,6 +111,88 @@ __device__ __forceinline__ uint32_t encode_f32(float x, Posit pc) {
   uint32_t pat = sign ? ((0u - body) & mask32(N)) : body;
   if (is_zero) pat = 0u;
   if (is_nar) pat = 1u << (N - 1);
+  return pat;
+}
+
+// encode_f32 split at the f32 exponent field.  Everything encode_f32 does
+// but the fraction's rounding and the sign depends on the biased exponent
+// e8 alone, so a format's 256 entries, built once per block by
+// encode_entry, leave about twenty integer instructions a value
+// (encode_by_entry), with the same pattern as encode_f32:
+//   T    = (ehi | frac23 << (G - 23)) << L   (ehi = e << G, 0 where the
+//                                             scale is clamped)
+//   T_r  = (T + half + lsb) >> S             (the RNE shift right by
+//                                             S = sh, or the exact shift
+//                                             left by L = -sh; lsb = bit S
+//                                             of T where S > 0)
+//   body = clamp(base + T_r, 1, maxbody)     (base = rb << t, or the
+//                                             clamped body itself, with
+//                                             S = 31 so that T_r = 0:
+//                                             T < 2^26)
+// then the sign, zero (e8 == 0, subnormals included) and NaR (e8 == 255).
+struct __align__(16) EncodeEntry {
+  uint32_t base, ehi, half;
+  uint32_t shifts;  // S | L << 8 | lsb_mask << 16
+};
+
+__device__ __forceinline__ EncodeEntry encode_entry(int e8, Posit pc) {
+  const int G = 26;
+  const int N = pc.N, es = pc.es;
+  int scale = e8 - 127;
+  bool over = scale > pc.max_scale();
+  bool under = scale < pc.min_scale();
+  EncodeEntry en;
+  if (over || under) {
+    en.base = over ? mask32(N - 1) : 1u;
+    en.ehi = 0u;
+    en.half = 0u;
+    en.shifts = 31u;
+    return en;
+  }
+  int k = floor_div_pow2(scale, es);
+  int e = scale - k * (1 << es);
+  int kmax = pc.kmax(), kmin = pc.kmin(), rcap = pc.rcap();
+  bool pos = k >= 0, at_hi = k == kmax, at_lo = k == kmin;
+  int w;
+  uint32_t rb;
+  if (pc.R) {
+    w = pos ? (at_hi ? rcap : k + 2) : (at_lo ? rcap : -k + 1);
+    rb = pos ? (at_hi ? mask32(rcap) : ((1u << (k + 1)) - 1u) << 1)
+             : (at_lo ? 0u : 1u);
+  } else {
+    w = pos ? (at_hi ? N - 1 : k + 2) : -k + 1;
+    rb = pos ? (at_hi ? mask32(N - 1) : ((1u << (k + 1)) - 1u) << 1) : 1u;
+  }
+  int t = (N - 1) - w;
+  int sh = es + G - t;
+  en.base = rb << (t > 0 ? t : 0);
+  en.ehi = (uint32_t)e << G;
+  if (sh > 0) {
+    int s = sh > 31 ? 31 : sh;
+    en.half = (1u << (s - 1)) - 1u;
+    en.shifts = (uint32_t)s | (1u << 16);
+  } else {
+    int s = -sh > 31 ? 31 : -sh;
+    en.half = 0u;
+    en.shifts = (uint32_t)s << 8;
+  }
+  return en;
+}
+
+__device__ __forceinline__ uint32_t encode_by_entry(uint32_t bits,
+                                                    const EncodeEntry& en,
+                                                    Posit pc) {
+  const int N = pc.N;
+  const uint32_t e8 = (bits >> 23) & 0xFFu;
+  const uint32_t S = en.shifts & 0xFFu, L = (en.shifts >> 8) & 0xFFu;
+  const uint32_t T = (en.ehi | ((bits & mask32(23)) << 3)) << L;
+  const uint32_t lsb = (T >> S) & (en.shifts >> 16);
+  uint32_t body = en.base + ((T + en.half + lsb) >> S);
+  const uint32_t maxbody = mask32(N - 1);
+  body = body < 1u ? 1u : (body > maxbody ? maxbody : body);
+  uint32_t pat = (bits >> 31) ? ((0u - body) & mask32(N)) : body;
+  if (e8 == 0u) pat = 0u;
+  if (e8 == 0xFFu) pat = 1u << (N - 1);
   return pat;
 }
 

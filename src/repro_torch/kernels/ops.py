@@ -3,6 +3,10 @@
 ``euler_matmul_fused(x, w, ecfg)`` is the end-to-end fused path: f32
 inputs are posit-encoded (encode kernel) and multiplied through the logmac
 kernel into the f32 quire value — the EULER-ADAS NCE in three launches.
+``euler_matmul_prescaled(x, w, ecfg)`` is the same product under the
+per-tensor pow2 pre-scale: each operand's scale and words come from one
+fused pass (``encode_prescaled``), the words go to logmac as they are, and
+the product is scaled back by ``sa * sb`` on the device.
 Each wrapper dispatches on its tensors' device: CPU tensors run the plain
 versions, CUDA tensors the kernels.
 """
@@ -17,6 +21,11 @@ from . import posit_codec as _codec
 
 def encode(x: torch.Tensor, pc) -> torch.Tensor:
     return _codec.posit_encode(x, pc)
+
+
+def encode_prescaled(x: torch.Tensor, pc, pre_scale: bool = True):
+    """f32 -> (posit words of x / s, s), s = the pow2 scale of x."""
+    return _codec.posit_encode_prescaled(x, pc, pre_scale)
 
 
 def decode(pat: torch.Tensor, pc) -> torch.Tensor:
@@ -36,3 +45,13 @@ def euler_matmul_fused(x: torch.Tensor, w: torch.Tensor,
     a_pat = encode(x.to(torch.float32).contiguous(), pc)
     b_pat = encode(w.to(torch.float32).contiguous(), pc)
     return logmac_matmul(a_pat, b_pat, ecfg)
+
+
+def euler_matmul_prescaled(x: torch.Tensor, w: torch.Tensor,
+                           ecfg: EulerConfig) -> torch.Tensor:
+    """``euler_matmul_fused`` of x / sx and w / sw, scaled back by sx * sw:
+    the pre-scaled contraction of the cuda backend."""
+    pc = ecfg.posit
+    a_pat, sa = encode_prescaled(x.to(torch.float32).contiguous(), pc)
+    b_pat, sb = encode_prescaled(w.to(torch.float32).contiguous(), pc)
+    return logmac_matmul(a_pat, b_pat, ecfg) * (sa * sb)

@@ -6,6 +6,12 @@ subnormal inputs flush to zero (DAZ) and Inf/NaN map to NaR.
 ``posit_encode`` is the wrapper: plain version for a CPU tensor, the
 ``csrc/posit_encode.cu`` kernel for a CUDA tensor.
 
+``posit_encode_prescaled`` is the cuda backend's operand pass: the
+per-tensor pow2 scale ``s = _pow2_scale(x)`` and the words of ``x / s`` in
+one kernel pass (a reduce launch, then an encode launch; ``_encode_plan``),
+returning ``(words, s)`` with ``s`` a 0-dim tensor on
+the tensor's device.  Its plain version is ``encode_prescaled_plain``.
+
 ``posit_decode`` maps words to f32 through the ILM ``val`` plane
 (``decode_planes_raw`` with stages 0), like the TPU decode kernel: zero and
 NaR both decode to 0.0 and the mantissa is converted to f32 before it is
@@ -18,10 +24,12 @@ N bits valid); the plain version's int64 result is narrowed the same way.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from repro_torch.core import posit as P
+from repro_torch.core import engine as _E
 from . import _build
 from .logmac import decode_planes_raw
 
@@ -92,26 +100,122 @@ def encode_plain(x, pc: P.PositConfig) -> torch.Tensor:
     return as_word32(encode_body(x, pc))
 
 
+# csrc/posit_encode.cu's launch geometry (test_torch_encode_prescaled.py
+# reads the constants there): threads per block of the encode and reduce
+# launches, float4 loads a thread issues together, blocks resident on an
+# SM, and the grid caps (one wave on 132 SMs, so an encode block adds at
+# most 528 partials).
+ENC_THREADS, RED_THREADS, UNROLL = 256, 256, 4
+BLOCKS_PER_SM, N_SMS = 4, 132
+ENC_MAX_BLOCKS = RED_MAX_BLOCKS = BLOCKS_PER_SM * N_SMS
+
+
+@dataclasses.dataclass(frozen=True)
+class EncodePlan:
+    """How the encode kernels cover a tensor: a reduce launch of
+    ``reduce_blocks`` blocks of RED_THREADS (0 without pre-scale; one
+    (sum, count) partial each) then an encode launch of ``encode_blocks``
+    blocks of ENC_THREADS."""
+
+    reduce_blocks: int
+    encode_blocks: int
+
+
+def _blocks(numel: int, threads: int, cap: int) -> int:
+    vecs = -(-numel // 4)
+    return max(1, min(cap, -(-vecs // (threads * UNROLL))))
+
+
+def _encode_plan(numel: int, pre_scale: bool = True) -> EncodePlan:
+    """The launches for ``numel`` values; depends on ``numel`` alone."""
+    return EncodePlan(
+        _blocks(numel, RED_THREADS, RED_MAX_BLOCKS) if pre_scale else 0,
+        _blocks(numel, ENC_THREADS, ENC_MAX_BLOCKS))
+
+
+def _check_input(x: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"{what}: kernel takes contiguous float32 input "
+                         f"(got {x.dtype}, contiguous={x.is_contiguous()})")
+
+
+def _launch(x: torch.Tensor, pc: P.PositConfig, pre_scale: bool
+            ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One ctypes call of ``posit_encode_launch`` on a checked CUDA tensor:
+    the words of ``x / s`` and ``s`` with pre-scale, else the words of ``x``
+    and None.  Counts no launch (the wrappers do)."""
+    n = x.numel()
+    plan = _encode_plan(n, pre_scale)
+    out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    s = parts = None
+    if pre_scale:
+        s = torch.empty((), dtype=torch.float32, device=x.device)
+        # one (f64 sum, int64 count) pair of 16 bytes per reduce block
+        parts = torch.empty((plan.reduce_blocks, 2), dtype=torch.float64,
+                            device=x.device)
+    fn = _build.function(
+        "posit_encode", "posit_encode_launch",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    err = fn(x.data_ptr(), out.data_ptr(),
+             None if s is None else s.data_ptr(),
+             None if parts is None else parts.data_ptr(), n, pc.n_bits,
+             pc.es, pc.regime_max or 0, plan.reduce_blocks,
+             plan.encode_blocks, _build.stream_ptr(x))
+    _build.check(err, "posit_encode_prescaled" if pre_scale
+                 else "posit_encode")
+    return out, s
+
+
 def posit_encode(x: torch.Tensor, pc: P.PositConfig) -> torch.Tensor:
     """f32 tensor -> posit words (int32 holding uint32 bits), any shape."""
     if x.device.type == "cpu":
         return encode_plain(x, pc)
-    if x.device.type != "cuda":
-        raise ValueError(f"posit_encode: unsupported device {x.device}")
-    if x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError("posit_encode: kernel takes contiguous float32 input "
-                         f"(got {x.dtype}, contiguous={x.is_contiguous()})")
-    out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
-    lib = _build.load("posit_encode")
-    fn = lib.posit_encode_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), out.data_ptr(), x.numel(), pc.n_bits, pc.es,
-             pc.regime_max or 0, _build.stream_ptr(x))
-    _build.check(err, "posit_encode")
+    _check_input(x, "posit_encode")
+    if x.numel() == 0:
+        return torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    out, _ = _launch(x, pc, pre_scale=False)
     _build.count_launch("posit_encode", pc.n_bits)
     return out
+
+
+def encode_prescaled_plain(x, pc: P.PositConfig, pre_scale: bool = True
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the fused kernel: ``(encode_plain(x / s), s)``
+    with ``s = engine._pow2_scale(x)``, or 1 without pre-scale."""
+    xf = torch.as_tensor(x).to(torch.float32)
+    if not pre_scale:
+        return (encode_plain(xf, pc),
+                torch.ones((), dtype=torch.float32, device=xf.device))
+    s = _E._pow2_scale(xf)
+    return encode_plain(xf / s, pc), s
+
+
+def posit_encode_prescaled(x: torch.Tensor, pc: P.PositConfig,
+                           pre_scale: bool = True
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 tensor -> (posit words of x / s, s), s the per-tensor pow2 scale
+    (a 0-dim f32 tensor on x's device; 1 without pre-scale, where the words
+    come from ``posit_encode``).
+
+    On the card the mean log2 that s rounds is summed in f64, where
+    ``_pow2_scale`` sums in f32: where that mean lies within the f32 sum's
+    rounding error of a .5 tie, the two can pick powers of two a factor 2
+    apart, and then every word differs from the plain version's.  The f64
+    sum is the nearer to the exact mean (chip_smoke.py phase 2 reports the
+    margin on inputs placed next to a tie)."""
+    if x.device.type == "cpu":
+        return encode_prescaled_plain(x, pc, pre_scale)
+    _check_input(x, "posit_encode_prescaled")
+    if not pre_scale:
+        return (posit_encode(x, pc),
+                torch.ones((), dtype=torch.float32, device=x.device))
+    out, s = _launch(x, pc, pre_scale=True)
+    _build.count_launch("posit_encode_prescaled", pc.n_bits)
+    return out, s
 
 
 def decode_plain(pat, pc: P.PositConfig) -> torch.Tensor:

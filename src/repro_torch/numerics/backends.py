@@ -9,8 +9,9 @@ Counterpart of ``repro.numerics.backends``:
   "cuda"     the kernels (``repro_torch.kernels``), the counterpart of the
              reference's "pallas" backend with its routing rules: an
              euler-mode dot with one contraction and no batch dims runs
-             encode + logmac (``pre_scale``/``out_quant`` applied around
-             the kernel as in the reference); every other dot runs the
+             encode + logmac (``pre_scale`` as one fused scale-and-encode
+             pass per operand, ``out_quant`` after the kernel, as the
+             reference applies them); every other dot runs the
              ``lax_ref`` engine; ``decode_attention`` runs the fused
              flash-decode kernel for integer posit pages under euler qk/pv,
              and the gather reference otherwise.  Each kernel wrapper
@@ -141,12 +142,11 @@ class CudaBackend(LaxRefBackend):
         N = math.prod(rhs_free)
         af = a2.reshape(M, K).to(torch.float32)
         bf = b2.reshape(K, N).to(torch.float32)
-        if cfg.pre_scale:  # same per-tensor power-of-2 centering as the engine
-            sa, sb = _E._pow2_scale(af), _E._pow2_scale(bf)
-            af, bf = af / sa, bf / sb
-        out = _K.euler_matmul_fused(af, bf, cfg)
-        if cfg.pre_scale:
-            out = out * (sa * sb)
+        # the engine's per-tensor power-of-2 centering, computed with each
+        # operand's words in one kernel pass
+        matmul = (_K.euler_matmul_prescaled if cfg.pre_scale
+                  else _K.euler_matmul_fused)
+        out = matmul(af, bf, cfg)
         if cfg.out_quant:
             out = _P.quantize(out, cfg.posit)
         return out.reshape(lhs_free + rhs_free).to(cfg.dtype)

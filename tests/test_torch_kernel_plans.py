@@ -318,8 +318,9 @@ def check_redesigned_kernels_on_card(dev: torch.device) -> None:
     pattern, the small-M logmac at every row bound and across the
     crossover with ragged, split and misaligned operands, and the
     page-parallel paged decode with page chunks, each giving the same bits
-    on two launches.  Shared by the card test below (torch alone) and
-    ``tests/test_torch_kernels.py``'s card test."""
+    on two launches, then the fused pre-scale + encode kernel
+    (``check_encode_prescaled_on_card``).  Shared by the card test below
+    (torch alone) and ``tests/test_torch_kernels.py``'s card test."""
     from repro_torch.kernels import posit_codec as TPC
     g = torch.Generator(device=dev).manual_seed(0)
     # the served format's decode table, bit for bit the plain decode of
@@ -396,6 +397,71 @@ def check_redesigned_kernels_on_card(dev: torch.device) -> None:
                 assert float((got - want).abs().max()) <= 1e-3
                 assert bool((got == TPD.paged_flash_decode(*args, window,
                                                            **kw)).all())
+    check_encode_prescaled_on_card(dev)
+
+
+def check_encode_prescaled_on_card(dev: torch.device) -> None:
+    """The fused pre-scale + encode kernel against its plain version on a
+    CUDA card: the scale bit for bit torch's ``_pow2_scale``, the words bit
+    for bit, on ragged sizes from one value to grids of several blocks, a
+    misaligned base, zeros, NaN, Inf, subnormals, P8/P16/P32 with and
+    without pre-scale, the same bits on two launches; and the cuda
+    backend's contraction, which must not reach ``_pow2_scale`` on the
+    card."""
+    from repro_torch.core import engine as TE
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ops as TOps
+    from repro_torch.kernels import posit_codec as TPC
+    from repro_torch.numerics import NumericsContext, dot_general
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def spread(n, scale_pow=9):
+        x = torch.randn(n, generator=g, device=dev)
+        return x * torch.exp2(torch.randint(-scale_pow, scale_pow, (n,),
+                                            generator=g, device=dev).float())
+
+    edges = torch.tensor([0.0, -0.0, float("nan"), 1e-40, -1e-40,
+                          2.0 ** -126, 3e38, -3e38, 1e-30], device=dev)
+    flat = spread(70001)
+    xs = [spread(n) for n in (1, 3, 5, 4097, 8192, 8193, 300001)]
+    xs += [torch.cat([spread(1000) * 1024, edges]), flat[1:],
+           torch.zeros(9, device=dev),
+           torch.tensor([1.0, float("inf"), -2.0, float("nan")], device=dev)]
+    assert xs[-3].data_ptr() % 16 != 0
+    # the compiled formats, and one read at run time (es 2 at 16 bits)
+    for pc in (TP.POSIT8, TP.BPOSIT8, TP.BPOSIT16, TP.POSIT32,
+               TP.PositConfig(16, 2, None)):
+        for pre in (True, False):
+            for x in xs:
+                w, s = TPC.posit_encode_prescaled(x, pc, pre)
+                w2, s2 = TPC.posit_encode_prescaled(x, pc, pre)
+                pw, ps = TPC.encode_prescaled_plain(x, pc, pre)
+                assert float(s) == float(ps) == float(s2), (x.numel(), pc)
+                assert bool((w == pw).all()) and bool((w == w2).all())
+    # the cuda route: two fused launches, no _pow2_scale, and the product
+    # the parent route (torch's scale, a divide, the plain encode) gives
+    tc = from_variant(16, "L-21b")
+    a = spread(4 * 2304, 3).view(4, 2304)
+    b = spread(2304 * 256).view(2304, 256)
+    dn = (((1,), (0,)), ((), ()))
+    sa, sb = TE._pow2_scale(a), TE._pow2_scale(b)
+    want = TOps.logmac_matmul(TPC.encode_plain(a / sa, tc.posit),
+                              TPC.encode_plain(b / sb, tc.posit),
+                              tc) * (sa * sb)
+    orig = TE._pow2_scale
+
+    def refuse(x):
+        raise AssertionError("the cuda route reached _pow2_scale on the card")
+
+    before = _build.LAUNCHES["posit_encode_prescaled"]
+    TE._pow2_scale = refuse
+    try:
+        got = dot_general(a, b, dn, NumericsContext.from_ecfg(tc, "cuda"),
+                          op="matmul")
+    finally:
+        TE._pow2_scale = orig
+    assert _build.LAUNCHES["posit_encode_prescaled"] == before + 2
+    assert bool((got.view(torch.int32) == want.view(torch.int32)).all())
 
 
 @pytest.mark.cuda

@@ -288,8 +288,10 @@ def test_cuda_backend_on_cpu_runs_plain_versions():
                            torch.tensor([5], dtype=torch.int32),
                            pc=TP.BPOSIT16, cfg_qk=tc, cfg_pv=tc)
     TOps.decode(torch.zeros(8, dtype=torch.int32), TP.BPOSIT16)
-    assert _build.LAUNCHES == {"posit_encode": 0, "posit_decode": 0,
-                               "logmac": 0, "paged_flash_decode": 0}
+    assert _build.LAUNCHES == {"posit_encode": 0,
+                               "posit_encode_prescaled": 0,
+                               "posit_decode": 0, "logmac": 0,
+                               "paged_flash_decode": 0}
     assert all(not v for v in _build.WIDTH_LAUNCHES.values())
 
 
@@ -298,6 +300,8 @@ def test_wrappers_refuse_other_devices():
     x = torch.zeros(4, 4, device="meta")
     with pytest.raises(ValueError):
         TPC.posit_encode(x, tc.posit)
+    with pytest.raises(ValueError):
+        TPC.posit_encode_prescaled(x, tc.posit)
     with pytest.raises(ValueError):
         TLM.logmac(x.to(torch.int32), x.to(torch.int32), tc)
     with pytest.raises(ValueError):
