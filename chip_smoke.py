@@ -14,8 +14,11 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    (its scale bit-equal to torch's ``_pow2_scale``, its words bit-identical
    to the plain version, at P8, P16 and P32 with and without pre-scale, on
    the five gemma2-2b weight shapes at the model init's scale, activations
-   at M in {1, 4, 16, 32}, a ragged size, a misaligned base and edge
-   values; two launches bit-identical), posit decode (bit-identical f32 on
+   at M in {1, 4, 16, 32}, every weight shape of the mamba2-1.3b and
+   hymba-1.5b paths with activations at each of their K for M in {1, 4,
+   128}, a ragged size, a misaligned base and edge values; the heads at
+   the served format only; two launches bit-identical), posit decode
+   (bit-identical f32 on
    six formats: every 8- and 16-bit pattern plus 2^24 random 32-bit
    words), the served P16 format's decode table bit for bit against the
    plain decode, logmac over every 8- and 16-bit pattern (and 2^20
@@ -23,8 +26,10 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    logmac at P8, P16 and P32 for M in {1, 4, 5, 16, 17, 31, 32,
    33} (the small-M kernel up to the crossover M = 32, the tile kernel
    above it) against the five gemma2-2b K x N shapes and a ragged one
-   (N % 4 != 0, K not a multiple of the split), plus a misaligned B
-   base, per-element bound ``1e-5*(|va||vb| + |ra||rb|) + 1e-4``;
+   (N % 4 != 0, K not a multiple of the split), at P16 for M in {1, 4,
+   16, 128} against the ten K x N shapes of the mamba2-1.3b and
+   hymba-1.5b paths, plus a misaligned B base, per-element bound
+   ``1e-5*(|va||vb| + |ra||rb|) + 1e-4``;
    paged flash-decode at the serving geometry and at a long context
    (max_len 4096, positions near 4000; windows None and 4096), max-abs
    <= 1e-3 against the plain version, < 0.05 against the gather
@@ -47,6 +52,25 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
 3c. the fault-injection campaign ``repro_torch.launch.faultcamp --smoke
    --guard`` (the TINY model in posit mode: no kernel) with its asserts;
 3d. the ``ops.encode`` -> ``ops.decode`` codec path on an MLP weight;
+3e. durable serving of gemma2-2b FULL (paged uint16 cache, ``cuda``,
+   batch 4, max_len 256, 8 requests x 16 tokens sampled at temperature
+   0.8 from one fixed key): an uninterrupted ``RequestBatcher`` drain,
+   then a ``ServeSupervisor`` over a ``DurableBatcher`` (a snapshot every
+   2 decode steps) killed at step 5 and restarted on a fresh engine;
+   every request's tokens equal the uninterrupted run's, one restart
+   ruled ELASTIC_DOWN, the fused encode, logmac and paged flash-decode
+   launched before and after the restart, every slot's pages equal to
+   the uninterrupted engine's; each snapshot's seconds and bytes; then
+   the same 8 prompts with staggered budgets, killed two steps before
+   the end (a snapshot every step), so the resumed steps carry retired
+   slots' pad rows: tokens, stats and every slot's pages equal to an
+   uninterrupted drain's;
+3f. mamba2-1.3b FULL (48 layers, d_model 2048) and hymba-1.5b FULL (32
+   layers, d_model 1600) served through the launcher on ``cuda`` with a
+   dense cache (8 requests x 16 tokens, batch 4, max_len 256): the fused
+   encode and logmac launched, paged flash-decode not, finite prefill
+   logits; then each SMOKE model's logits on the kernels against the
+   reference engine;
 4. each kernel timed with CUDA events (L2 flushed before every launch)
    beside its plain version, with the least time the card could take:
    ``ms`` with the host's issue of the call inside the window, as every
@@ -60,17 +84,20 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    a probe built from the kernel's ``logmac_decode.cuh``), paged decode
    (the whole call: q's pre-scale and encode, then the three passes) at
    the serving positions, near the end of max_len 256 and at a 4096
-   context.
+   context; the fused encode and logmac (M=4) also at every weight shape
+   of the mamba2-1.3b and hymba-1.5b paths.
 
-Launch counts are reset just before each path (3, 3b, 3c, 3d) and read
-just after; each path asserts the kernels it launches, and the
-``launches`` of the kernels line sum the four paths.  ``--profile`` also
+Launch counts are reset just before each path (3, 3b, 3c, 3d, the four
+drains of 3e, each model of 3f) and read just after; each path asserts
+the kernels it launches, and the ``launches`` of the kernels line sum
+the paths.  ``--profile`` also
 groups torch's own kernels by name and sums the kinds the pow2 pre-scale
 runs.  The line before the last is ``{"kernels": [...]}``; the last line
 is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -89,6 +116,17 @@ FP32_FLOPS = 67e12
 
 GEMMA_KN = [(2304, 2304), (2304, 1152), (2304, 9216), (9216, 2304),
             (2304, 256000)]
+# (K, N, projection) of every weight shape on the ssm and hybrid paths
+NEW_FAMILY_KN = {
+    "mamba2-1.3b": [(2048, 8512, "in_proj"), (4096, 2048, "out_proj"),
+                    (2048, 50288, "head")],
+    "hymba-1.5b": [(1600, 6482, "in_proj"), (3200, 1600, "out_proj"),
+                   (1600, 1600, "q, o"), (1600, 320, "k, v"),
+                   (1600, 5504, "gate, up"), (5504, 1600, "down"),
+                   (1600, 32016, "head")]}
+NEW_FAMILY_KN_SET = sorted({(K, N) for kns in NEW_FAMILY_KN.values()
+                            for K, N, _ in kns})
+NEW_FAMILY_K = sorted({K for K, _ in NEW_FAMILY_KN_SET})
 
 # torch kernels of the kinds ``_pow2_scale`` and its divide run: abs, the
 # compare, clamp, log2, where, the sums, exp2, round, the divide, the fill
@@ -475,6 +513,18 @@ def main(argv=None) -> int:
         for K in (2304, 9216):
             fused_in[f"activation [{M}, {K}]"] = torch.randn(
                 (M, K), generator=gen, device=dev) * 3.0
+    # every weight of the mamba2-1.3b and hymba-1.5b paths (phase 3f), and
+    # activations at each of their K: decode batches and the 128-token
+    # prefill bucket
+    for arch, kns in NEW_FAMILY_KN.items():
+        for K, N, proj in kns:
+            fused_in[f"{arch} {proj} weight [{K}, {N}]"] = torch.randn(
+                (K, N), generator=gen, device=dev) * (
+                    0.02 if proj == "head" else K ** -0.5)
+    for K in NEW_FAMILY_K:
+        for M in (1, 4, 128):
+            fused_in[f"activation [{M}, {K}]"] = torch.randn(
+                (M, K), generator=gen, device=dev) * 3.0
     ragged = torch.randn(2304 * 1155 - 3, generator=gen, device=dev)
     fused_in[f"ragged [{ragged.numel()}]"] = ragged * torch.exp2(torch.randint(
         -20, 20, ragged.shape, generator=gen, device=dev).float())
@@ -494,16 +544,18 @@ def main(argv=None) -> int:
                P.BPOSIT32):
         for pre_scale in (True, False):
             for what, xin in fused_in.items():
-                if "256000" in what and pc not in (P.BPOSIT16,):
-                    continue        # the head's 2.36 GB at the served format
+                if ("256000" in what or "head" in what) and (
+                        pc is not P.BPOSIT16):
+                    continue        # the heads at the served format only
                 s = check_prescaled(xin, pc, pre_scale, what)
                 if pre_scale:
                     scales[what] = s
     assert scales["all zero"] == 1.0 and scales["with Inf"] == float("inf")
     log(f"[encode_prescaled] scale bit-equal to torch's _pow2_scale and "
         f"words bit-identical on 6 formats with and without pre-scale, two "
-        f"launches the same bits: {len(fused_in)} inputs (the head at "
-        f"bposit16 only); scales {scales}")
+        f"launches the same bits: {len(fused_in)} inputs (the heads at "
+        f"bposit16 only; gemma2-2b, mamba2-1.3b and hymba-1.5b weight "
+        f"shapes); scales {scales}")
     del fused_in, ragged, base, edge
     # next to a .5 tie of the mean log2 (the seeded weights' own lies about
     # 0.0013 from one): the kernel sums in f64, torch's _pow2_scale in f32,
@@ -645,6 +697,22 @@ def main(argv=None) -> int:
         log(f"[logmac] P{width} L-21b, M in {logmac_ms} x "
             f"{GEMMA_KN + [ragged]}: within the per-element bound, two "
             f"launches bit-identical (max abs diff so far {worst:.3g})")
+    # the mamba2-1.3b and hymba-1.5b shapes (phase 3f) at the served P16:
+    # decode M = 1 and 4, a prefill M = 16 and the 128-token bucket (the
+    # tile kernel); the plan's split and K step follow (M, N, K)
+    new_ms = (1, 4, 16, 128)
+    for K, N in NEW_FAMILY_KN_SET:
+        b = bits((K, N), ecfg.posit)
+        planes_b = abs_planes(b, ecfg)
+        for M in new_ms:
+            worst = max(worst, check_logmac(
+                bits((M, K), ecfg.posit), b, ecfg, planes_b,
+                f"P16 M={M} K={K} N={N}"))
+        del b, planes_b
+    log(f"[logmac] P16 L-21b, M in {new_ms} x the mamba2-1.3b and "
+        f"hymba-1.5b shapes {NEW_FAMILY_KN_SET}: within the per-element "
+        f"bound, two launches bit-identical (max abs diff so far "
+        f"{worst:.3g})")
     # a B operand whose base is not 16-byte aligned takes the scalar loads
     K, N = 2304, 2304
     flat = bits((K * N + 1,), ecfg.posit)
@@ -892,6 +960,228 @@ def main(argv=None) -> int:
         f"max |round trip - w| {float((vals - xs).abs().max()):.3g}")
     del pats, vals, xs
 
+    phase_start("3e")
+    # ---- phase 3e: durable serving of gemma2-2b FULL, one restart -------
+    # an uninterrupted sampled drain, then the same workload under a
+    # ServeSupervisor whose DurableBatcher snapshots every 2 decode steps
+    # and is killed at step 5; the restart builds a fresh engine over the
+    # same params and resumes from the step-4 snapshot
+    import numpy as np
+    from repro_torch.distributed.failover import Action
+    from repro_torch.serving import (DurableBatcher, GenerationConfig,
+                                     PagedKVConfig, RequestBatcher,
+                                     ServeEngine, ServeSupervisor,
+                                     SimulatedCrash, make_key)
+    nctx = NumericsContext.from_ecfg(ecfg, backend="cuda")
+    full = Model(gemma2_2b.FULL, numerics=nctx, device=dev)
+    fparams = full.init(0)
+
+    def engine():
+        return ServeEngine(full, fparams, Ctx(numerics=nctx), max_len=256,
+                           batch=4, cache_dtype="uint16",
+                           paged=PagedKVConfig(page_size=16))
+
+    prng = np.random.default_rng(0)
+    prompts = [prng.integers(0, gemma2_2b.FULL.vocab, int(prng.integers(4, 24)))
+               for _ in range(8)]
+    sgen = GenerationConfig(max_new_tokens=16, temperature=0.8)
+
+    def submit(b):
+        for p in prompts:
+            b.submit(p, max_new=16)
+
+    _build.reset_launches()
+    base_b = RequestBatcher(engine(), prompt_buckets=(32, 128))
+    submit(base_b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base = base_b.run(sgen, key=make_key(7))
+    torch.cuda.synchronize()
+    base_s = time.perf_counter() - t0
+    launches = path_launches("durable: uninterrupted")
+    for name in ("posit_encode_prescaled", "logmac", "paged_flash_decode"):
+        assert launches[name] > 0, f"{name} not launched in the drain"
+    snap_dir = os.path.join(HERE, "build", "chip_smoke_snapshots")
+    shutil.rmtree(snap_dir, ignore_errors=True)
+    at_crash: dict = {}
+
+    def kill_at_5(step):
+        if step == 5 and not at_crash:
+            at_crash.update(_build.LAUNCHES)
+            raise SimulatedCrash("killed at decode step 5")
+
+    made: list = []  # every DurableBatcher, for its snapshots' costs
+
+    def make_batcher():
+        made.append(DurableBatcher(engine(), prompt_buckets=(32, 128),
+                                   ckpt_dir=snap_dir, snapshot_every=2,
+                                   on_step=kill_at_5))
+        return made[-1]
+
+    sup = ServeSupervisor(make_batcher)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sup.run(submit, sgen, key=make_key(7))
+    torch.cuda.synchronize()
+    sup_s = time.perf_counter() - t0
+    launches = path_launches("durable: supervised")
+    assert sup.restarts == 1, sup.restarts
+    assert [d.action for d in sup.decisions] == [Action.ELASTIC_DOWN], \
+        sup.decisions
+    assert set(res) == set(base) and len(base) == 8, (sorted(res), sorted(base))
+    for rid in base:
+        assert np.array_equal(res[rid], base[rid]), (
+            f"request {rid}: {res[rid].tolist()} after the restart, "
+            f"{base[rid].tolist()} uninterrupted")
+    for name in ("posit_encode_prescaled", "logmac", "paged_flash_decode"):
+        after = launches[name] - at_crash[name]
+        assert at_crash[name] > 0 and after > 0, (
+            f"{name}: {at_crash[name]} launches before the restart, "
+            f"{after} after")
+
+    def same_pages(want_eng, got_eng, what):
+        """Every slot's mapped pages, in logical order, bit for bit."""
+        for name, pool in want_eng.cache.items():
+            for s in range(want_eng.batch):
+                w = pool[:, want_eng.kv.pages_of(s)]
+                g = got_eng.cache[name][:, got_eng.kv.pages_of(s)]
+                assert torch.equal(w, g), f"{what}: slot {s}'s {name} pages"
+
+    same_pages(base_b.engine, made[-1].engine, "killed at step 5")
+    snaps = [(s, n) for b in made
+             for s, n in zip(b.snapshot_s, b.snapshot_bytes)]
+    log(f"[durable] {card}: 8 requests x 16 sampled tokens (T=0.8) and "
+        f"every slot's pages identical after one supervised restart "
+        f"(killed at step 5, resumed from step 4); uninterrupted drain "
+        f"{base_s:.2f} s, "
+        f"supervised drain {sup_s:.2f} s; {len(snaps)} snapshots, seconds "
+        f"{[round(s, 4) for s, _ in snaps]}, bytes {sorted({n for _, n in snaps})}")
+    log("[durable] " + json.dumps({
+        "uninterrupted_s": base_s, "supervised_s": sup_s,
+        "snapshot_s": [s for s, _ in snaps],
+        "snapshot_bytes": [n for _, n in snaps],
+        "launches_before_restart": {k: at_crash[k] for k in launches},
+        "launches_after_restart": {k: launches[k] - at_crash[k]
+                                   for k in launches}, "card": card}))
+    del base_b, sup
+    # a late kill: staggered budgets retire the requests at different
+    # steps, and the kill two steps before the end resumes from a snapshot
+    # taken after the queue drained, with a retired slot's pad row in the
+    # batch (the pow2 pre-scale couples it to the live rows)
+    late_new = (16, 11, 6, 14, 9, 16, 4, 12)
+
+    def submit_late(b):
+        for p, n in zip(prompts, late_new):
+            b.submit(p, max_new=n)
+
+    _build.reset_launches()
+    late_b = RequestBatcher(engine(), prompt_buckets=(32, 128))
+    submit_late(late_b)
+    late_base = late_b.run(sgen, key=make_key(8))
+    path_launches("durable, late kill: uninterrupted")
+    kill_late = late_b.stats["steps"] - 2
+    seen: dict = {}
+    made_late: list = []
+
+    def kill_late_hook(step):
+        b = made_late[-1]
+        seen.setdefault(step, (len(b.queue), b._state.active.copy()))
+        if step == kill_late and len(made_late) == 1:
+            raise SimulatedCrash(f"killed at decode step {step}")
+
+    def make_late():
+        made_late.append(DurableBatcher(engine(), prompt_buckets=(32, 128),
+                                        ckpt_dir=snap_dir + "_late",
+                                        snapshot_every=1,
+                                        on_step=kill_late_hook))
+        return made_late[-1]
+
+    shutil.rmtree(snap_dir + "_late", ignore_errors=True)
+    _build.reset_launches()
+    sup = ServeSupervisor(make_late)
+    res_late = sup.run(submit_late, sgen, key=make_key(8))
+    launches_late = path_launches("durable, late kill: supervised")
+    queued, active = seen[kill_late - 1]   # the snapshot resumed from
+    assert queued == 0 and not active.all() and active.any(), seen
+    assert sup.restarts == 1, sup.restarts
+    assert [d.action for d in sup.decisions] == [Action.ELASTIC_DOWN]
+    assert set(res_late) == set(late_base), sorted(res_late)
+    for rid in late_base:
+        assert np.array_equal(res_late[rid], late_base[rid]), (
+            f"late kill, request {rid}: {res_late[rid].tolist()} after the "
+            f"restart, {late_base[rid].tolist()} uninterrupted")
+    assert made_late[-1].stats == late_b.stats
+    same_pages(late_b.engine, made_late[-1].engine,
+               f"killed at step {kill_late}")
+    log(f"[durable] {card}: late kill at step {kill_late} of "
+        f"{late_b.stats['steps']} (budgets {late_new}): resumed from step "
+        f"{kill_late - 1} with slots {active.astype(int).tolist()} active "
+        f"and the queue drained; tokens and every slot's pages identical "
+        f"to the uninterrupted drain; launches {launches_late}")
+    shutil.rmtree(snap_dir + "_late", ignore_errors=True)
+    del late_b, made_late, sup, res_late, late_base
+    shutil.rmtree(snap_dir, ignore_errors=True)
+    del made, full, fparams, res, base
+    gc.collect()  # the engines go before phase 3f measures its peak
+    torch.cuda.empty_cache()
+
+    phase_start("3f")
+    # ---- phase 3f: the ssm and hybrid families at FULL size -------------
+    from repro_torch.configs import hymba_1p5b, mamba2_1p3b
+    for arch, mod in (("mamba2-1.3b", mamba2_1p3b),
+                      ("hymba-1.5b", hymba_1p5b)):
+        held = torch.cuda.memory_allocated(dev)
+        _build.reset_launches()
+        rep = serve.main(["--arch", arch, "--full", "--backend", "cuda",
+                          "--euler", "L-21b", "--width", "16", "--device",
+                          "cuda", "--batch", "4", "--max-len", "256",
+                          "--requests", "8", "--max-new", "16",
+                          "--seed", "0"])
+        launches = path_launches(f"serve {arch}")
+        assert (rep["n_layers"], rep["d_model"]) == (
+            mod.FULL.n_layers, mod.FULL.d_model), rep["arch"]
+        assert rep["tokens"] == 128, rep["tokens"]
+        for name in ("posit_encode_prescaled", "logmac"):
+            assert launches[name] > 0, f"{name} not launched serving {arch}"
+        assert launches["paged_flash_decode"] == 0, launches
+        eng = rep["engine"]
+        first = next(iter(rep["results"].values()))
+        logits, _ = eng.model.prefill(
+            eng.params, torch.as_tensor(first[:16], device=dev)[None, :],
+            eng.ctx, eng.model.init_cache(1, 16))
+        assert logits.shape == (1, mod.FULL.vocab_padded)
+        assert bool(torch.isfinite(logits).all()), f"non-finite {arch} logits"
+        log(f"[serve {arch}] {card}: {rep['tok_per_s']:.2f} tok/s, request "
+            f"latency p50 {rep['latency_p50_s']:.3f}s p99 "
+            f"{rep['latency_p99_s']:.3f}s, {rep['steps']} steps, "
+            f"{rep['refills']} refills, max_memory_allocated "
+            f"{rep['max_memory_allocated'] / 2**30:.2f} GiB (of it "
+            f"{held / 2**30:.2f} GiB held before the launch)")
+        line = {k: rep[k] for k in (
+            "tokens", "seconds", "tok_per_s", "latency_p50_s",
+            "latency_p99_s", "steps", "refills", "max_memory_allocated",
+            "launches")}
+        line.update(arch=arch, card=card, allocated_before=held)
+        log(f"[serve {arch}] " + json.dumps(line))
+        del rep, eng, logits
+        torch.cuda.empty_cache()
+        # SMOKE logits: the kernels against the reference engine on the card
+        ids = torch.randint(0, mod.SMOKE.vocab, (2, 16), generator=gen,
+                            device=dev)
+        outs, params = {}, None
+        for backend in ("cuda", "lax_ref"):
+            nctx = NumericsContext.from_ecfg(ecfg, backend=backend)
+            m = Model(mod.SMOKE, numerics=nctx, device=dev)
+            params = params if params is not None else m.init(1)
+            outs[backend], _ = m.prefill(params, ids, Ctx(numerics=nctx),
+                                         m.init_cache(2, 16))
+        torch.testing.assert_close(outs["cuda"], outs["lax_ref"], rtol=1e-4,
+                                   atol=2e-3)
+        log(f"[smoke-model {arch}] cuda vs lax_ref prefill logits max diff "
+            f"{float((outs['cuda'] - outs['lax_ref']).abs().max()):.3g}")
+        del outs, params, m
+
     phase_start("4")
     # ---- phase 4: timings ----------------------------------------------
     flush_buf = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
@@ -1010,6 +1300,48 @@ def main(argv=None) -> int:
                      "floor_ms": instr[width] * K * N
                      / (sms * 128 * clk_mhz * 1e6) * 1e3})
         del a, b
+    # the fused encode and logmac (P16, decode width M=4) at the weight
+    # shapes of the mamba2-1.3b and hymba-1.5b paths (phase 3f), at the
+    # model init's scale
+    for arch, kns in NEW_FAMILY_KN.items():
+        for K, N, what in kns:
+            head = what == "head"
+            xf = torch.randn((K, N), generator=gen, device=dev) * (
+                0.02 if head else K ** -0.5)
+            nv = xf.numel()
+
+            def fused():
+                return PC.posit_encode_prescaled(xf, ecfg.posit)
+
+            ms = time_ms(fused, flush=flush)
+            dev_ms = time_ms(fused, flush=flush, device_only=True)
+            pms = time_ms(lambda: PC.encode_prescaled_plain(xf, ecfg.posit),
+                          reps=2, flush=flush)
+            rows.append({"name": "posit_encode_prescaled", "route": "cuda",
+                         "source": "src/repro_torch/kernels/csrc/"
+                                   "posit_encode.cu",
+                         "replaces": "src/repro/kernels/posit_codec.py:73 "
+                                     "and src/repro/core/engine.py:135",
+                         "shape": f"{arch} {what}: f32 [{K}, {N}]",
+                         "bytes": 12 * nv, "flops": 0, "ms": ms,
+                         "device_ms": dev_ms, "plain_ms": pms})
+            del xf
+            a, b = bits((4, K), ecfg.posit), bits((K, N), ecfg.posit)
+            ms = time_ms(lambda: LM.logmac(a, b, ecfg), flush=flush)
+            dev_ms = time_ms(lambda: LM.logmac(a, b, ecfg), flush=flush,
+                             device_only=True)
+            pms = time_ms(lambda: LM.logmac_plain(a, b, ecfg), reps=2,
+                          flush=flush)
+            rows.append({"name": "logmac", "route": "cuda",
+                         "source": "src/repro_torch/kernels/csrc/logmac.cu",
+                         "replaces": "src/repro/kernels/logmac.py:136",
+                         "shape": f"{arch} {what}: P16 M=4 K={K} N={N}",
+                         "bytes": (4 * K + K * N + 4 * N) * 4,
+                         "flops": 4 * 4 * N * K, "ms": ms,
+                         "device_ms": dev_ms, "plain_ms": pms,
+                         "floor_ms": instr[16] * K * N
+                         / (sms * 128 * clk_mhz * 1e6) * 1e3})
+            del a, b
     # paged decode (window 4096, the local layers) at the serving
     # positions, near the end of max_len 256 and at a 4096 context
     for max_len_t, pos_t, pool in (

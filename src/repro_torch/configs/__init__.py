@@ -8,9 +8,10 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ("gemma2_2b",)
+ARCHS = ("gemma2_2b", "mamba2_1p3b", "hymba_1p5b")
 
-ALIASES = {"gemma2-2b": "gemma2_2b"}
+ALIASES = {"gemma2-2b": "gemma2_2b", "mamba2-1.3b": "mamba2_1p3b",
+           "hymba-1.5b": "hymba_1p5b"}
 
 
 def get_config(arch: str):

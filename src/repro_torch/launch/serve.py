@@ -3,11 +3,26 @@ requests through the continuous-batching scheduler.
 
   python -m repro_torch.launch.serve --arch gemma2-2b --full --paged \\
       --cache-dtype uint16 --backend cuda
+  python -m repro_torch.launch.serve --arch mamba2-1.3b --full --backend cuda
 
 Runs on ``--device cuda`` (the default) and raises when no CUDA device is
 present; ``--device cpu`` runs the kernels' plain versions on the CPU
 (tests use it with the SMOKE config).  Float32 contractions run at full
-precision (``pin_exact_f32``: no TF32).
+precision (``pin_exact_f32``: no TF32).  ``--arch`` takes gemma2-2b,
+mamba2-1.3b and hymba-1.5b; the last two hold recurrent SSM state and
+serve from a dense cache only (``--paged`` raises).
+
+Weights and durability:
+
+  --ckpt-dir         serve the ``{"params": ...}`` checkpoint the JAX
+                     package wrote there (read with
+                     ``distributed.checkpoint.restore_numpy``, converted
+                     with ``params_from_jax``) instead of the seeded init
+  --snapshot-dir     durable serving: snapshot the scheduler state there
+                     every --snapshot-every decode steps
+  --resume           restore the drain from --snapshot-dir instead of
+                     submitting fresh requests
+  --temperature      sample (0: greedy)
 
 Fault-tolerant serving knobs:
 
@@ -32,17 +47,18 @@ import torch
 
 from repro_torch import configs as C
 from repro_torch.core.engine import from_variant
+from repro_torch.distributed import checkpoint as CK
 from repro_torch.kernels import _build
 from repro_torch.launch import pin_exact_f32
 from repro_torch.models.layers import Ctx
-from repro_torch.models.transformer import Model
+from repro_torch.models.transformer import Model, params_from_jax
 from repro_torch.numerics import NumericsContext, PrecisionPolicy
 from repro_torch.numerics import api as napi
 from repro_torch.numerics.backends import guarded
 from repro_torch.reliability.guards import GuardConfig
-from repro_torch.serving import (GenerationConfig, PagedKVConfig,
-                                 QueueFullError, RequestBatcher, ServeEngine,
-                                 SLOConfig)
+from repro_torch.serving import (DurableBatcher, GenerationConfig,
+                                 PagedKVConfig, QueueFullError,
+                                 RequestBatcher, ServeEngine, SLOConfig)
 
 
 def _backend_name(args) -> str:
@@ -74,6 +90,23 @@ def build_levels(args, primary: NumericsContext
     return [primary] + [build_numerics(args, w) for w in widths]
 
 
+def load_jax_params(ckpt_dir: str, cfg, device):
+    """The ``params`` subtree of a checkpoint the JAX package wrote, as this
+    package's parameter dicts on ``device``."""
+    tree: dict = {}
+    for path, arr in CK.restore_numpy(ckpt_dir).items():
+        keys = CK.path_keys(path)
+        if keys[0] != "params":
+            continue
+        node = tree
+        for k in keys[1:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = arr
+    if not tree:
+        raise KeyError(f"no ['params'] leaves in the checkpoint at {ckpt_dir}")
+    return params_from_jax(tree, cfg, device=device)
+
+
 def _launch_counts():
     return (dict(_build.LAUNCHES),
             {k: dict(v) for k, v in _build.WIDTH_LAUNCHES.items()})
@@ -95,6 +128,18 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--ckpt-dir", default="",
+                    help="serve the params of a checkpoint the JAX package "
+                         "wrote here instead of the seeded init")
+    ap.add_argument("--snapshot-dir", default="",
+                    help="durable serving: snapshot the scheduler state here "
+                         "at step boundaries (enables --resume)")
+    ap.add_argument("--snapshot-every", type=int, default=8,
+                    help="decode steps between scheduler snapshots")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the drain from --snapshot-dir instead of "
+                         "submitting fresh requests")
     ap.add_argument("--paged", action="store_true",
                     help="paged KV cache: shared page pool + per-slot page "
                          "tables; decode runs the fused flash-decode kernel "
@@ -133,6 +178,8 @@ def main(argv=None) -> dict:
     """Serve once; prints a summary and returns it as a dict."""
     args = parser().parse_args(argv)
     logging.basicConfig(level=logging.WARNING)
+    if args.resume and not args.snapshot_dir:
+        raise SystemExit("--resume requires --snapshot-dir")
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available; "
                            "pass --device cpu to run on the CPU")
@@ -145,7 +192,15 @@ def main(argv=None) -> dict:
     dev = model.device
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    params = model.init(args.seed)
+    params = None
+    if args.ckpt_dir:
+        try:
+            params = load_jax_params(args.ckpt_dir, cfg, dev)
+            print(f"loaded params from step {CK.latest_step(args.ckpt_dir)}")
+        except (OSError, KeyError, ValueError) as e:
+            print(f"no checkpoint loaded ({e}); serving random init")
+    if params is None:
+        params = model.init(args.seed)
     paged = (PagedKVConfig(page_size=args.page_size,
                            num_pages=args.num_pages or None)
              if args.paged else None)
@@ -155,12 +210,17 @@ def main(argv=None) -> dict:
                       paged=paged)
     slo = (SLOConfig(queue_hi=args.slo_queue_hi,
                      p99_ms=args.slo_p99_ms or None) if levels else None)
-    batcher = RequestBatcher(eng, prompt_buckets=(32, 128),
-                             max_queue=args.max_queue or None, slo=slo,
-                             guard_retry=args.guard_retry if args.guard else 0)
+    kw = dict(max_queue=args.max_queue or None, slo=slo,
+              guard_retry=args.guard_retry if args.guard else 0)
+    if args.snapshot_dir:
+        batcher = DurableBatcher(eng, prompt_buckets=(32, 128),
+                                 ckpt_dir=args.snapshot_dir,
+                                 snapshot_every=args.snapshot_every, **kw)
+    else:
+        batcher = RequestBatcher(eng, prompt_buckets=(32, 128), **kw)
     rng = np.random.default_rng(args.seed)
     dropped = 0
-    for _ in range(args.requests):
+    for _ in range(0 if args.resume else args.requests):
         plen = int(rng.integers(4, 24))
         try:
             batcher.submit(rng.integers(0, cfg.vocab, plen),
@@ -178,10 +238,17 @@ def main(argv=None) -> dict:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    results = batcher.run(
-        GenerationConfig(max_new_tokens=args.max_new),
-        on_complete=lambda rid, toks: done_at.setdefault(
-            rid, time.perf_counter()))
+
+    def on_complete(rid, toks):
+        done_at.setdefault(rid, time.perf_counter())
+
+    if args.resume:
+        results = batcher.resume(on_complete=on_complete)
+    else:
+        results = batcher.run(
+            GenerationConfig(max_new_tokens=args.max_new,
+                             temperature=args.temperature),
+            on_complete=on_complete)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
@@ -210,6 +277,8 @@ def main(argv=None) -> dict:
             for k, v in by_width1.items()},
         "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
                                  if dev.type == "cuda" else None),
+        "snapshot_s": getattr(batcher, "snapshot_s", None),
+        "snapshot_bytes": getattr(batcher, "snapshot_bytes", None),
         "results": results, "engine": eng, "batcher": batcher,
     }
     print(f"served {len(results)} requests, {ntok} tokens in {dt:.2f}s "

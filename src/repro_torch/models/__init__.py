@@ -1,5 +1,5 @@
-"""Model zoo of the port: the dense decoder family with EULER-ADAS numerics
-on every matmul."""
+"""Model zoo of the port: the dense, ssm and hybrid decoder families with
+EULER-ADAS numerics on every matmul."""
 from .config import ModelConfig
 from .transformer import Model, params_from_jax
 

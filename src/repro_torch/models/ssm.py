@@ -1,0 +1,205 @@
+"""Mamba-2 SSD (state-space duality) mixer with EULER-ADAS numerics.
+
+Counterpart of ``repro.models.ssm``: the chunked SSD algorithm of Dao & Gu
+(arXiv:2405.21060) for prefill, and the classic recurrence
+``S' = dA * S + dt * (B ⊗ x)``, ``y = C·S'`` with a rolling conv buffer for
+the O(1) decode step.
+
+The reference's ``lax.scan`` over chunks is a Python loop here, with no
+remat (there is no backward pass).  A chunk's four contractions go through
+``repro_torch.numerics`` with the reference's dimension numbers; they have
+batch dimensions, so the ``cuda`` backend runs them on the reference
+engine, as the reference's Pallas backend does.  ``in_proj`` and
+``out_proj`` are plain projections and reach the fused encode and logmac on
+``cuda``.  The cross-chunk state accumulation and the decode recurrence
+stay exact f32.
+
+Caches are updated in place: ``ssm_apply`` writes the new state and conv
+tail into the cache views it is given (the reference returns new arrays).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import numerics as NU  # 'N' is the SSM state dim locally
+
+from .layers import Ctx, cache_reset, dense_apply, dense_init
+
+
+def ssm_init(gen, cfg, device):
+    """Mamba-2 mixer params.  Group count G=1 (shared B/C across heads)."""
+    d, di, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    H = cfg.n_ssm_heads
+    K = cfg.conv_kernel
+    conv_dim = di + 2 * N  # conv over [x, B, C] as in the reference impl
+    d_proj = 2 * di + 2 * N + H  # in_proj emits [z, x, B, C, dt]
+    f32 = dict(dtype=torch.float32, device=device)
+    conv_w = torch.randn((K, conv_dim), generator=gen, **f32)
+    return {
+        "in_proj": dense_init(gen, d, d_proj, device),
+        "conv_w": conv_w.mul_((K * conv_dim) ** -0.5),
+        "conv_b": torch.zeros((conv_dim,), **f32),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, **f32)),
+        "D": torch.ones((H,), **f32),
+        "dt_bias": torch.log(torch.expm1(torch.linspace(1e-3, 1e-1, H,
+                                                        **f32))),
+        "norm_g": torch.ones((di,), **f32),
+        "out_proj": dense_init(gen, di, d, device),
+    }
+
+
+def _gated_rmsnorm(y, z, g, eps=1e-6):
+    y = y * F.silu(z.to(torch.float32))
+    var = torch.mean(y * y, -1, keepdim=True)
+    return y * torch.rsqrt(var + eps) * g
+
+
+def _causal_conv(u, w, b):
+    """Depthwise causal conv along T.  u: [B, T, C], w: [K, C]."""
+    K = w.shape[0]
+    T = u.shape[1]
+    pad = F.pad(u, (0, 0, K - 1, 0))
+    out = torch.zeros_like(u)
+    for i in range(K):  # K is tiny (4)
+        out = out + pad[:, i:i + T, :] * w[i]
+    return out + b
+
+
+def _split_proj(zxbcdt, cfg):
+    di, N = cfg.d_inner, cfg.ssm_state
+    z = zxbcdt[..., :di]
+    xBC = zxbcdt[..., di:2 * di + 2 * N]
+    dt = zxbcdt[..., 2 * di + 2 * N:]
+    return z, xBC, dt
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, ctx: Ctx, chunk: int, initial_state=None):
+    """Chunked SSD: a loop over chunks carrying the [B, H, N, P] state,
+    which accumulates exactly in f32 (the quire analogue).
+
+    Args:
+      x:  [B, T, H, P] inner activations.
+      dt: [B, T, H]    softplus'd step sizes.
+      A:  [H]          negative decay rates.
+      Bm/Cm: [B, T, N] input/output projections (G=1 group, shared by heads).
+    Returns:
+      y: [B, T, H, P], final_state [B, H, N, P].
+    """
+    Bsz, T, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, T)
+    if T % Q:
+        raise ValueError(f"sequence length {T} is not a multiple of the "
+                         f"SSD chunk {Q}")
+    dev = x.device
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dev))
+    neg = torch.tensor(-1e30, device=dev)
+    S = (initial_state if initial_state is not None
+         else torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=dev))
+    ys = []
+    for c in range(T // Q):
+        sl = slice(c * Q, (c + 1) * Q)
+        xq, dtq, Bq, Cq = x[:, sl], dt[:, sl], Bm[:, sl], Cm[:, sl]
+        dA = dtq * A                                           # [B, Q, H]
+        cum = torch.cumsum(dA, dim=1)
+        # intra-chunk dual form: scores[i,j] = C_i · B_j (EULER-quantized)
+        dn = (((2,), (2,)), ((0,), (0,)))
+        scores = NU.dot_general(Cq, Bq, dn, ctx.numerics, op="qk")
+        # mask the log-decay BEFORE exp (the reference's where-grad guard)
+        ldiff = cum[:, :, None, :] - cum[:, None, :, :]        # [B,Qi,Qj,H]
+        ldiff = torch.where(causal[None, :, :, None], ldiff, neg)
+        M = scores[..., None] * torch.exp(ldiff)               # [B,Qi,Qj,H]
+        xdt = xq * dtq[..., None]                              # [B,Q,H,P]
+        # y_intra[i,h,p] = sum_j M[i,j,h] xdt[j,h,p]
+        dn2 = (((3,), (1,)), ((0, 1), (0, 2)))  # [B,H,Qi,Qj] x [B,Qj,H,P]
+        y_intra = NU.dot_general(M.movedim(-1, 1), xdt, dn2, ctx.numerics,
+                                 op="pv").movedim(1, 2)        # [B,Qi,H,P]
+        # inter-chunk: y_inter[i] = exp(cum_i) * (C_i · S_in)
+        dn3 = (((2,), (1,)), ((0,), (0,)))  # Cq [B,Q,N] x S_in [B,N,H,P]
+        y_inter = NU.dot_general(Cq, S.movedim(1, 2), dn3, ctx.numerics)
+        y_inter = y_inter * torch.exp(cum)[..., None]
+        # state update: S_out = decay * S_in + sum_j B_j ⊗ (w_j x_j)
+        decay_out = torch.exp(cum[:, -1:, :] - cum)            # [B,Q,H]
+        w = xdt * decay_out[..., None]                         # [B,Q,H,P]
+        dn4 = (((1,), (1,)), ((0,), (0,)))  # contract Q
+        S_chunk = NU.dot_general(Bq, w, dn4, ctx.numerics).movedim(1, 2)
+        chunk_decay = torch.exp(cum[:, -1, :])                 # [B,H]
+        S = S * chunk_decay[:, :, None, None] + S_chunk
+        ys.append(y_intra + y_inter)
+    return torch.cat(ys, 1), S
+
+
+@NU.scoped("ssm")
+def ssm_apply(p, x, ctx: Ctx, cfg, cache=None):
+    """Full Mamba-2 mixer.  cache None: chunked forward over [B, T, d];
+    cache ``{"state", "conv"}`` and T > 1: prefill (the final state and
+    conv tail written into the cache); T == 1: the O(1) decode step.
+    Returns (out, cache)."""
+    Bsz, T, d = x.shape
+    di, N = cfg.d_inner, cfg.ssm_state
+    H, P = cfg.n_ssm_heads, cfg.ssm_head_dim
+    K = cfg.conv_kernel
+
+    zxbcdt = dense_apply(p["in_proj"], x, ctx)  # [B, T, 2di+2N+H]
+    z, xBC, dt_raw = _split_proj(zxbcdt, cfg)
+    A = -torch.exp(p["A_log"])  # [H]
+    dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"])  # [B,T,H]
+
+    if cache is not None and T == 1:
+        # ---- O(1) decode ----
+        conv_buf = cache["conv"]  # [B, K-1, conv_dim]
+        window = torch.cat([conv_buf, xBC.to(conv_buf.dtype)], 1)
+        conv_out = torch.einsum("bkc,kc->bc", window.to(torch.float32),
+                                p["conv_w"]) + p["conv_b"]
+        conv_out = F.silu(conv_out)[:, None, :]  # [B,1,cd]
+        xin = conv_out[..., :di].reshape(Bsz, 1, H, P)
+        Bm = conv_out[..., di:di + N]
+        Cm = conv_out[..., di + N:]
+        S = cache["state"]  # [B, H, N, P]
+        dA = torch.exp(dt[:, 0, :] * A)  # [B,H]
+        dBx = (dt[:, 0, :, None, None] * Bm[:, 0, None, :, None]
+               * xin[:, 0, :, None, :])
+        S_new = S * dA[:, :, None, None] + dBx
+        y = torch.einsum("bn,bhnp->bhp", Cm[:, 0], S_new)  # contract N
+        y = y + p["D"][None, :, None] * xin[:, 0]
+        y = _gated_rmsnorm(y.reshape(Bsz, 1, di), z, p["norm_g"])
+        out = dense_apply(p["out_proj"], y.to(x.dtype), ctx)
+        cache["state"].copy_(S_new)
+        cache["conv"].copy_(window[:, 1:, :])
+        return out, cache
+
+    # ---- chunked forward / prefill ----
+    conv_out = F.silu(_causal_conv(xBC, p["conv_w"], p["conv_b"]))
+    xin = conv_out[..., :di].reshape(Bsz, T, H, P)
+    Bm = conv_out[..., di:di + N]
+    Cm = conv_out[..., di + N:]
+    y, S_final = ssd_chunked(xin, dt, A, Bm, Cm, ctx, cfg.ssm_chunk)
+    y = y + p["D"][None, None, :, None] * xin
+    y = _gated_rmsnorm(y.reshape(Bsz, T, di), z, p["norm_g"])
+    out = dense_apply(p["out_proj"], y.to(x.dtype), ctx)
+    if cache is not None:  # prefill: carry the final state + conv tail
+        cache["state"].copy_(S_final)
+        cache["conv"].copy_(xBC[:, T - (K - 1):, :].to(cache["conv"].dtype))
+    return out, cache
+
+
+def ssm_cache_init(cfg, batch: int, dtype, device):
+    """``{"state": [B, H, N, P] f32, "conv": [B, K-1, conv_dim] dtype}``."""
+    di, N = cfg.d_inner, cfg.ssm_state
+    H, P = cfg.n_ssm_heads, cfg.ssm_head_dim
+    conv_dim = di + 2 * N
+    return {
+        "state": torch.zeros((batch, H, N, P), dtype=torch.float32,
+                             device=device),
+        "conv": torch.zeros((batch, cfg.conv_kernel - 1, conv_dim),
+                            dtype=dtype, device=device),
+    }
+
+
+def ssm_cache_reset(cache, slot=None, batch_axis: int = 0):
+    """Zero the recurrent SSM state/conv buffers in place — whole cache or
+    one batch slot.  The SSM state is recurrent (no validity mask hides a
+    stale one), so a slot must be reset before a new request enters it."""
+    return cache_reset(cache, slot, batch_axis)
+

@@ -1,12 +1,19 @@
-"""Decoder-only backbone of the dense family, with EULER-ADAS numerics.
+"""Decoder-only backbone with EULER-ADAS numerics, three families:
 
-Counterpart of ``repro.models.transformer`` for ``family="dense"``: init,
-forward, head, prefill, decode_step, dense and paged caches, per-layer
-local/global windows and gemma2's post-block norms.  Parameters are plain
-dicts of tensors: ``{"embed": {"e"}, "layers": [per-layer dicts],
-"ln_f": {"g"}}``; the reference's ``lax.scan`` over stacked layers is a
-host loop over the list.  :func:`params_from_jax` converts the reference's
-``Model.init`` pytree (as numpy, layers stacked ``[L, ...]``).
+  dense   attention + MLP blocks (per-layer local/global windows, gemma2's
+          post-block norms)
+  ssm     Mamba-2 SSD blocks (attention-free; ``models.ssm``)
+  hybrid  parallel attention + SSD heads per block, each branch normalized,
+          then averaged, then an MLP (hymba)
+
+Counterpart of ``repro.models.transformer`` for those families: init,
+forward, head, prefill, decode_step, dense caches (KV slabs, SSM state and
+conv tail) and the paged KV pool (attention-only: ``ssm``/``hybrid`` hold
+recurrent state and are refused).  Parameters are plain dicts of tensors:
+``{"embed": {"e"}, "layers": [per-layer dicts], "ln_f": {"g"}}``; the
+reference's ``lax.scan`` over stacked layers is a host loop over the list.
+:func:`params_from_jax` converts the reference's ``Model.init`` pytree (as
+numpy, layers stacked ``[L, ...]``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -22,8 +29,11 @@ from repro_torch.core.engine import EulerConfig
 from repro_torch.numerics import NumericsContext
 
 from . import layers as L
+from . import ssm as S
 from .config import ModelConfig
 from .layers import Ctx
+
+FAMILIES = ("dense", "ssm", "hybrid")
 
 _FLOAT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float16": torch.float16}
@@ -46,9 +56,10 @@ class Model:
     def __init__(self, cfg: ModelConfig, ecfg: EulerConfig | None = None,
                  numerics: NumericsContext | None = None,
                  device: "str | torch.device" = "cuda"):
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense only)")
+                f"family {cfg.family!r} is not ported yet (ported: "
+                f"{', '.join(FAMILIES)})")
         self.cfg = cfg
         if numerics is None:
             numerics = NumericsContext.from_ecfg(
@@ -74,14 +85,21 @@ class Model:
 
     def _block_init(self, gen):
         cfg, dev = self.cfg, self.device
-        p = {"ln1": L.rmsnorm_init(cfg.d_model, dev),
-             "attn": L.attention_init(gen, cfg, dev)}
-        if cfg.post_norm:
-            p["pn1"] = L.rmsnorm_init(cfg.d_model, dev)
-        p["ln2"] = L.rmsnorm_init(cfg.d_model, dev)
-        p["mlp"] = L.mlp_init(gen, cfg, dev)
-        if cfg.post_norm:
-            p["pn2"] = L.rmsnorm_init(cfg.d_model, dev)
+        fam = cfg.family
+        p = {"ln1": L.rmsnorm_init(cfg.d_model, dev)}
+        if fam in ("dense", "hybrid"):
+            p["attn"] = L.attention_init(gen, cfg, dev)
+            if cfg.post_norm:
+                p["pn1"] = L.rmsnorm_init(cfg.d_model, dev)
+            p["ln2"] = L.rmsnorm_init(cfg.d_model, dev)
+            p["mlp"] = L.mlp_init(gen, cfg, dev)
+            if cfg.post_norm:
+                p["pn2"] = L.rmsnorm_init(cfg.d_model, dev)
+        if fam in ("ssm", "hybrid"):
+            p["ssm"] = S.ssm_init(gen, cfg, dev)
+        if fam == "hybrid":
+            p["bn_a"] = L.rmsnorm_init(cfg.d_model, dev)
+            p["bn_s"] = L.rmsnorm_init(cfg.d_model, dev)
         return p
 
     def init(self, seed: int = 0):
@@ -120,6 +138,28 @@ class Model:
 
     def _block(self, p, x, ctx: Ctx, window, positions, cache):
         cfg = self.cfg
+        if cfg.family == "ssm":
+            h, _ = S.ssm_apply(p["ssm"], L.rmsnorm_apply(p["ln1"], x), ctx,
+                               cfg, cache)
+            return x + h.to(x.dtype), cache
+        if cfg.family == "hybrid":
+            xin = L.rmsnorm_apply(p["ln1"], x)
+            a_cache = s_cache = None
+            if cache is not None:
+                a_cache = {"k": cache["k"], "v": cache["v"]}
+                s_cache = {"state": cache["state"], "conv": cache["conv"]}
+            ha, _ = L.attention_apply(p["attn"], xin, ctx, cfg, window,
+                                      positions, a_cache,
+                                      q_chunk=cfg.q_chunk,
+                                      kv_chunk=cfg.kv_chunk)
+            hs, _ = S.ssm_apply(p["ssm"], xin, ctx, cfg, s_cache)
+            # hymba-style fusion: per-branch normalization, then the mean
+            h = 0.5 * (L.rmsnorm_apply(p["bn_a"], ha)
+                       + L.rmsnorm_apply(p["bn_s"], hs))
+            x = x + h.to(x.dtype)
+            x = x + L.mlp_apply(p["mlp"], L.rmsnorm_apply(p["ln2"], x), ctx,
+                                cfg.mlp).to(x.dtype)
+            return x, cache
         h, cache = L.attention_apply(p["attn"], L.rmsnorm_apply(p["ln1"], x),
                                      ctx, cfg, window, positions, cache,
                                      q_chunk=cfg.q_chunk,
@@ -152,7 +192,7 @@ class Model:
         for i, (p_l, win) in enumerate(zip(params["layers"],
                                            self.layer_windows())):
             c_l = (None if cache is None else
-                   {"k": cache["k"][i], "v": cache["v"][i]})
+                   {name: a[i] for name, a in cache.items()})
             x, _ = self._block(p_l, x, ctx, win, positions, c_l)
         x = L.rmsnorm_apply(params["ln_f"], x)
         return x, cache
@@ -178,17 +218,33 @@ class Model:
     # ------------------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int, dtype=None):
-        """Dense per-slot cache ``{"k","v"}`` of ``[L, B, max_len, KV, hd]``."""
-        cfg = self.cfg
+        """Dense per-slot cache, every leaf stacked ``[L, B, ...]``: KV slabs
+        ``{"k","v"}`` of ``[L, B, max_len, KV, hd]`` (dense, hybrid) and the
+        SSM ``{"state","conv"}`` (ssm, hybrid).  The SSM conv tail takes
+        ``dtype`` too, bfloat16 for a uint8 cache, as in the reference."""
+        cfg, dev = self.cfg, self.device
         dtype = torch_dtype(dtype or cfg.cache_dtype)
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+        fdt = torch.bfloat16 if dtype == torch.uint8 else dtype
+        c = {}  # one layer's leaves, on the meta device for their shapes
+        if cfg.family in ("dense", "hybrid"):
+            c.update(L.attention_cache_init(cfg, batch, max_len, dtype,
+                                            "meta"))
+        if cfg.family in ("ssm", "hybrid"):
+            c.update(S.ssm_cache_init(cfg, batch, fdt, "meta"))
+        return {k: torch.zeros((cfg.n_layers,) + tuple(a.shape),
+                               dtype=a.dtype, device=dev)
+                for k, a in c.items()}
 
     def init_paged_cache(self, num_pages: int, page_size: int, dtype=None):
         """Shared page pool ``{"k","v"}`` of ``[L, P, page_size, KV, hd]``;
-        pages 0/1 are reserved (null read page / trash write sink)."""
+        pages 0/1 are reserved (null read page / trash write sink).
+        Attention-only: SSM/hybrid recurrent state has no sequence axis to
+        page."""
         cfg = self.cfg
+        if cfg.family in ("ssm", "hybrid"):
+            raise ValueError(
+                f"paged KV cache requires attention caches; family "
+                f"{cfg.family!r} holds recurrent state")
         dtype = torch_dtype(dtype or cfg.cache_dtype)
         shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads,
                  cfg.head_dim)

@@ -1,8 +1,9 @@
 """Slot-based continuous-batching serving.
 
-Counterpart of ``repro.serving.engine`` for greedy serving, with per-request
-deadlines, the SLO-driven precision ladder, guard-triggered retries and
-live fault plans (durable snapshots and failover are not ported).
+Counterpart of ``repro.serving.engine``: greedy and sampled (temperature,
+top-k) serving with per-request deadlines, the SLO-driven precision
+ladder, guard-triggered retries and live fault plans.  Durable snapshots
+and supervised restart build on it in ``serving.failover``.
 
 * ``ServeEngine`` owns the model's KV cache and exposes the slot
   primitives: ``prefill_slot`` (batch-1 prefill fully overwriting a slot),
@@ -30,6 +31,13 @@ admits new requests down the ladder under load (``DegradeController``),
 violation one level higher, or fails it when its retries run out.
 ``ServeEngine(fault=...)`` runs every decode step under
 ``reliability.faults.inject``; prefill is never corrupted.
+
+**Keys.**  JAX's PRNG keys become counter-based pairs of integers
+``(seed, counter)`` (:func:`make_key`).  :func:`split_key` advances the
+counter and hands out a sub-key, an integer folded from the pair, that
+seeds one device ``torch.Generator`` for one sample.  The batcher threads
+the key through every admission and decode step as the reference does, so
+a snapshot of the pair (``serving.failover``) resumes the exact stream.
 """
 from __future__ import annotations
 
@@ -54,8 +62,40 @@ log = logging.getLogger("repro_torch.serving")
 @dataclasses.dataclass(frozen=True)
 class GenerationConfig:
     max_new_tokens: int = 32
+    temperature: float = 0.0          # 0 => greedy
+    top_k: int = 0                    # 0 => no top-k filter
     eos_id: int | None = None         # stop a row once it emits this token
     pad_id: int = 0                   # what finished rows emit afterwards
+
+
+def make_key(seed: int = 0) -> tuple[int, int]:
+    """A sampling key: the pair (seed, counter) at counter 0."""
+    return (int(seed), 0)
+
+
+def split_key(key) -> tuple[tuple[int, int], int]:
+    """(the next key, a sub-key): the counter advances by one and the
+    sub-key is an integer seed folded from the pair."""
+    seed, ctr = (int(k) for k in key)
+    return (seed, ctr + 1), _faults.fold_in(seed, ctr)
+
+
+def _sample(logits, gen: GenerationConfig, sub: int):
+    """Greedy / temperature / top-k sampling of one [B, V] logits slab on
+    its device.  Sampling is the Gumbel-max draw ``jax.random.categorical``
+    makes, from a generator seeded with the sub-key."""
+    if gen.temperature == 0.0:
+        return torch.argmax(logits, -1).to(torch.int32)
+    logits = logits.to(torch.float32) / gen.temperature
+    if gen.top_k:
+        kth = torch.topk(logits, gen.top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth,
+                             torch.tensor(-1e30, device=logits.device), logits)
+    g = torch.Generator(device=logits.device)
+    g.manual_seed(sub)
+    u = torch.rand(logits.shape, generator=g, device=logits.device)
+    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits - torch.log(-torch.log(u)), -1).to(torch.int32)
 
 
 class ServeEngine:
@@ -150,40 +190,44 @@ class ServeEngine:
             grown.append(p)
         return grown
 
-    def _step(self, gen, tok, pos, done, level: int = 0, cache=None,
+    def _step(self, gen, tok, pos, done, key, level: int = 0, cache=None,
               page_table=None, write_mask=None):
         """One masked decode step at ladder ``level`` over ``cache`` (the
-        engine's own by default): the reference's scan body."""
+        engine's own by default): the reference's scan body.  Returns
+        (tokens, positions, done, the next key)."""
         cache = self.cache if cache is None else cache
         if self.fault is None:
             faults_on = contextlib.nullcontext()
         else:
-            key = _faults.fold_in(self.fault.seed, self.fault_step)
-            faults_on = _faults.inject(self.fault, key, self.fault_step)
+            fkey = _faults.fold_in(self.fault.seed, self.fault_step)
+            faults_on = _faults.inject(self.fault, fkey, self.fault_step)
         with faults_on:
             logits, _ = self.model.decode_step(
                 self.params, tok, pos, cache, self._ctxs[level],
                 page_table=page_table, write_mask=write_mask)
-        nxt = torch.argmax(logits, -1).to(torch.int32)
+        key, sub = split_key(key)
+        nxt = _sample(logits, gen, sub)
         pad = torch.tensor(gen.pad_id, dtype=torch.int32, device=self.device)
         nxt = torch.where(done, pad, nxt)
         pos = torch.where(done, pos,
                           torch.clamp(pos + 1, max=self.max_len - 1))
         if gen.eos_id is not None:
             done = done | (nxt == gen.eos_id)
-        return nxt, pos, done
+        return nxt, pos, done, key
 
     # -- slot-level primitives (used by the scheduler) -------------------
 
-    def prefill_slot(self, slot: int, prompt_tokens, level: int = 0) -> int:
-        """Prefill one request into ``slot`` and return its first token.
+    def prefill_slot(self, slot: int, prompt_tokens, gen: GenerationConfig,
+                     key: int, level: int = 0) -> int:
+        """Prefill one request into ``slot`` and return its first token,
+        sampled under ``gen`` with the sub-key ``key`` (``split_key``'s).
 
         Runs a batch-1 prefill on a zero cache, under ladder ``level``'s
-        numerics, and writes it over the slot's whole row (dense) or
-        scatters it into freshly allocated pool pages (paged; the length
-        must be a page multiple).  Raises :class:`PagePoolOOM` (slot
-        unmapped, pool clean) when the pool cannot hold the request plus
-        one growth page."""
+        numerics, and writes it over every cache leaf's slot row (dense:
+        KV slabs, SSM state, conv tail) or scatters it into freshly
+        allocated pool pages (paged; the length must be a page multiple).
+        Raises :class:`PagePoolOOM` (slot unmapped, pool clean) when the
+        pool cannot hold the request plus one growth page."""
         ctx = self._ctxs[level]
         toks = torch.as_tensor(np.asarray(prompt_tokens, np.int32),
                                device=self.device)[None, :]
@@ -210,13 +254,13 @@ class ServeEngine:
                 pool[:, idx] = slab.reshape(
                     (slab.shape[0], len(pages), ps) + tuple(slab.shape[2:])
                 ).to(pool.dtype)
-            return int(torch.argmax(logits[0]))
+            return int(_sample(logits, gen, key)[0])
         self.model.reset_cache(self._cache1)
         logits, c1 = self.model.prefill(self.params, toks, ctx,
                                         self._cache1)
         for name, a in self.cache.items():
             a[:, slot] = c1[name][:, 0].to(a.dtype)
-        return int(torch.argmax(logits[0]))
+        return int(_sample(logits, gen, key)[0])
 
     def _table_cap(self) -> int:
         """Logical-page window for this step's table: the max mapped page
@@ -229,12 +273,13 @@ class ServeEngine:
             cap *= 2
         return min(cap, self.kv.n_logical)
 
-    def step_slots(self, gen: GenerationConfig, tok, pos, active,
+    def step_slots(self, gen: GenerationConfig, tok, pos, active, key,
                    level=None):
         """One masked decode step over all slots.  ``tok``/``pos``/``active``
         are [B] host arrays; inactive slots are fed as done (emit pad,
-        frozen position).  Returns the emitted [B] tokens (numpy); the
-        cache and ``fault_step`` advance on the engine.
+        frozen position).  Returns the emitted [B] tokens (numpy) and the
+        threaded key (every level's step splits it once); the cache and
+        ``fault_step`` advance on the engine.
 
         ``level``: optional [B] ladder indices.  When every active slot
         shares one level this is one step, identical to the level-free
@@ -258,11 +303,11 @@ class ServeEngine:
                 # pad-token k/v at their frozen position, like dense does
                 kw["write_mask"] = torch.ones(act.shape, dtype=torch.bool,
                                               device=dev)
-            nxt, _, _ = self._step(gen, tok_t, pos_t,
-                                   torch.as_tensor(~act, device=dev),
-                                   level=used[0], **kw)
+            nxt, _, _, key = self._step(gen, tok_t, pos_t,
+                                        torch.as_tensor(~act, device=dev),
+                                        key, level=used[0], **kw)
             self.fault_step += 1
-            return nxt.cpu().numpy()
+            return nxt.cpu().numpy(), key
         out = None
         if self.kv is not None:
             # the pool has no slot axis to merge over, so the levels run
@@ -271,8 +316,8 @@ class ServeEngine:
             # trash page)
             for lvl in used:
                 sel = torch.as_tensor(act & (lvls == lvl), device=dev)
-                t, _, _ = self._step(gen, tok_t, pos_t, ~sel, level=lvl,
-                                     write_mask=sel, **kw)
+                t, _, _, key = self._step(gen, tok_t, pos_t, ~sel, key,
+                                          level=lvl, write_mask=sel, **kw)
                 out = t if out is None else torch.where(sel, t, out)
         else:
             # dense: every level steps from the SAME pre-step cache (a
@@ -281,8 +326,8 @@ class ServeEngine:
             for lvl in used:
                 sel = torch.as_tensor(act & (lvls == lvl), device=dev)
                 c = {k: v.clone() for k, v in self.cache.items()}
-                t, _, _ = self._step(gen, tok_t, pos_t, ~sel, level=lvl,
-                                     cache=c)
+                t, _, _, key = self._step(gen, tok_t, pos_t, ~sel, key,
+                                          level=lvl, cache=c)
                 out = t if out is None else torch.where(sel, t, out)
                 stepped.append((sel, c))
             for sel, c in stepped:
@@ -290,7 +335,7 @@ class ServeEngine:
                 for k, a in self.cache.items():
                     a[:, rows] = c[k][:, rows]
         self.fault_step += 1
-        return out.cpu().numpy()
+        return out.cpu().numpy(), key
 
 
 @dataclasses.dataclass
@@ -370,8 +415,12 @@ class _Slot:
 
 @dataclasses.dataclass
 class _RunState:
+    """The scheduler loop's complete host-side state between two decode
+    steps (the engine holds the cache): what ``serving.failover``'s
+    ``DurableBatcher`` snapshots, and re-enters ``_drive`` from."""
     gen: GenerationConfig
     cap_budget: bool          # True: gen.max_new_tokens caps request budgets
+    key: tuple                # threaded (seed, counter) sampling key
     slots: list               # [B] of _Slot | None
     tok: np.ndarray           # [B] last emitted token per slot
     pos: np.ndarray           # [B] next cache write position per slot
@@ -479,9 +528,14 @@ class RequestBatcher:
     # -- the scheduler loop ---------------------------------------------
 
     def run(self, gen: GenerationConfig | None = None,
-            on_complete: Callable[[int, np.ndarray], None] | None = None):
+            on_complete: Callable[[int, np.ndarray], None] | None = None,
+            key=None, max_steps: int | None = None):
         """Drain the queue; returns {rid: tokens}.  Per-request budgets are
-        ``min(request.max_new, gen.max_new_tokens)``."""
+        ``min(request.max_new, gen.max_new_tokens)``.  ``key``: the
+        sampling key (``make_key(0)`` when None).  ``max_steps`` bounds the
+        decode steps of this call: the loop then returns the results so far
+        with its state kept on ``self._state`` (the simulated kill of the
+        failover tests)."""
         if not self.queue:
             return {}
         eng = self.engine
@@ -492,11 +546,13 @@ class RequestBatcher:
         eng.reset_all()
         eng.fault_step = 0
         st = _RunState(gen=gen if gen is not None else GenerationConfig(),
-                       cap_budget=gen is not None, slots=[None] * B,
-                       tok=np.zeros(B, np.int32), pos=np.zeros(B, np.int64),
-                       active=np.zeros(B, bool),
+                       cap_budget=gen is not None,
+                       key=tuple(key) if key is not None else make_key(),
+                       slots=[None] * B, tok=np.zeros(B, np.int32),
+                       pos=np.zeros(B, np.int64), active=np.zeros(B, bool),
                        level=np.zeros(B, np.int32))
-        return self._drive(st, on_complete)
+        self._state = st
+        return self._drive(st, on_complete, max_steps)
 
     def _budget(self, st: _RunState, r: Request) -> int:
         return (min(r.max_new, st.gen.max_new_tokens) if st.cap_budget
@@ -651,12 +707,15 @@ class RequestBatcher:
                 r.level = lvl
             r.level = min(r.level, eng.n_levels - 1)
             packed = self._pack(r)
+            st.key, sub = split_key(st.key)
             try:
-                first = eng.prefill_slot(s, packed, level=r.level)
+                first = eng.prefill_slot(s, packed, st.gen, sub,
+                                         level=r.level)
             except PagePoolOOM:
                 self._reclaim_retired(st)
                 try:
-                    first = eng.prefill_slot(s, packed, level=r.level)
+                    first = eng.prefill_slot(s, packed, st.gen, sub,
+                                             level=r.level)
                 except PagePoolOOM:
                     # backpressure: requeue and stop admitting until decode
                     # retires slots
@@ -689,26 +748,35 @@ class RequestBatcher:
             return True
         return False
 
-    def _drive(self, st: _RunState, on_complete=None):
+    def _drive(self, st: _RunState, on_complete=None,
+               max_steps: int | None = None):
+        """Advance the loop from ``st`` until the queue drains (or
+        ``max_steps`` decode steps); ``_on_step_boundary`` fires after each
+        completed step, after retire and before the next admission wave."""
         eng = self.engine
         B = eng.batch
         maxpos = eng.max_len - 1
+        steps_this_call = 0
         while True:
             for s in range(B):
                 if st.slots[s] is None:
                     self._admit(st, s, on_complete)
             if not st.active.any():
                 break
+            if max_steps is not None and steps_this_call >= max_steps:
+                break  # yield with resumable state (the simulated kill)
             if eng.kv is not None:
                 self._grow_pages(st)
             if len(set(st.level[st.active].tolist())) > 1:
                 self.stats["mixed_steps"] += 1
             t0 = self.clock()
-            emitted = eng.step_slots(st.gen, st.tok, st.pos, st.active,
-                                     level=st.level)
+            emitted, st.key = eng.step_slots(st.gen, st.tok, st.pos,
+                                             st.active, st.key,
+                                             level=st.level)
             if self.controller is not None:
                 self.controller.record_step((self.clock() - t0) * 1000.0)
             st.step += 1
+            steps_this_call += 1
             self.stats["steps"] += 1
             if self.guard_retry:
                 # unrecovered violations tear the slot down BEFORE its
@@ -726,4 +794,9 @@ class RequestBatcher:
                 if st.slots[s].budget <= 0 or hit_eos:
                     self._retire(st, s, on_complete)
             self._expire_slots(st, on_complete)
+            self._on_step_boundary(st)
         return st.results
+
+    def _on_step_boundary(self, st: _RunState):
+        """Hook after every completed decode step (post-retire); the
+        ``DurableBatcher`` snapshots here, the base scheduler does nothing."""

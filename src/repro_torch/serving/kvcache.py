@@ -199,3 +199,37 @@ class PagedKVCache:
         if self._dev_table is None or self._dev_table.device != torch.device(device):
             self._dev_table = torch.from_numpy(self.table.copy()).to(device)
         return self._dev_table
+
+    # -- failover -----------------------------------------------------------
+    def snapshot(self) -> dict:
+        """JSON-serializable mapping state.  The pool bytes ride in the
+        engine's array-tree snapshot; this is what makes them addressable
+        again after a resume."""
+        return {"page_size": self.page_size,
+                "num_pages": self.alloc.num_pages,
+                "peak_pages": self.peak_pages,
+                "slot_pages": [list(p) for p in self._slot_pages]}
+
+    def load(self, snap: dict) -> None:
+        """Restore :meth:`snapshot`: every slot claims the exact physical
+        pages it recorded, so the restored tables address the restored pool
+        bytes unchanged.  A geometry mismatch or a page claimed twice
+        raises."""
+        if snap["page_size"] != self.page_size \
+                or snap["num_pages"] != self.alloc.num_pages:
+            raise ValueError("paged snapshot geometry mismatch")
+        self.reset()
+        for slot, pages in enumerate(snap["slot_pages"]):
+            if not pages:
+                continue
+            if len(pages) > self.n_logical:
+                raise ValueError(f"slot {slot} snapshot exceeds max_len")
+            for p in pages:
+                if p in self.alloc._used:
+                    raise ValueError(f"page {p} claimed twice in snapshot")
+                self.alloc._free.remove(p)
+                self.alloc._used.add(p)
+            self._slot_pages[slot] = list(pages)
+            self.table[slot, :len(pages)] = pages
+            self._dirty()
+        self.peak_pages = max(self.peak_pages, snap.get("peak_pages", 0))

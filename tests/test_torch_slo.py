@@ -20,9 +20,12 @@ from repro_torch.reliability.faults import FaultPlan
 from repro_torch.reliability.guards import GuardConfig
 from repro_torch.serving import (DegradeController, GenerationConfig,
                                  PagedKVConfig, QueueFullError,
-                                 RequestBatcher, ServeEngine, SLOConfig)
+                                 RequestBatcher, ServeEngine, SLOConfig,
+                                 make_key, split_key)
 
 torch.set_num_threads(1)
+
+SUB = split_key(make_key())[1]   # the prefills' sub-key (greedy ignores it)
 
 CFG = ModelConfig(name="srv", family="dense", n_layers=2, d_model=64,
                   n_heads=4, n_kv_heads=2, d_ff=128, vocab=128,
@@ -217,25 +220,27 @@ def test_paged_mixed_levels_write_only_their_own_pages(model_params):
                for _ in range(2)]
     gen = GenerationConfig(max_new_tokens=8)
     mixed = _paged_engine(model_params, levels=[hi, lo])
-    first = [mixed.prefill_slot(s, prompts[s], level=s) for s in range(2)]
+    first = [mixed.prefill_slot(s, prompts[s], gen, SUB, level=s)
+             for s in range(2)]
     tok, pos = np.asarray(first, np.int32), np.asarray([8, 8])
     toks = []
     for _ in range(5):
         for s in range(2):
             mixed.ensure_slot_pages(s, pos[s])
-        tok = mixed.step_slots(gen, tok, pos, [True, True], level=[0, 1])
+        tok, _ = mixed.step_slots(gen, tok, pos, [True, True], make_key(),
+                                  level=[0, 1])
         toks.append(tok)
         pos = pos + 1
     for s, nctx in enumerate((hi, lo)):
         one = _paged_engine(model_params, numerics=nctx)
         t = np.asarray([0, 0], np.int32)
-        t[s] = one.prefill_slot(s, prompts[s])
+        t[s] = one.prefill_slot(s, prompts[s], gen, SUB)
         assert t[s] == first[s]
         p = np.asarray([8, 8])
         act = [i == s for i in range(2)]
         for k in range(5):
             one.ensure_slot_pages(s, p[s])
-            t = one.step_slots(gen, t, p, act)
+            t, _ = one.step_slots(gen, t, p, act, make_key())
             assert t[s] == toks[k][s], (s, k)
             p = p + 1
         want, got = _slot_words(one, s), _slot_words(mixed, s)
