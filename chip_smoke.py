@@ -16,7 +16,7 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    the five gemma2-2b weight shapes at the model init's scale, activations
    at M in {1, 4, 16, 32}, every weight shape of the mamba2-1.3b and
    hymba-1.5b paths with activations at each of their K for M in {1, 4,
-   128}, a ragged size, a misaligned base and edge values; the heads at
+   128, 256}, a ragged size, a misaligned base and edge values; the heads at
    the served format only; two launches bit-identical), posit decode
    (bit-identical f32 on
    six formats: every 8- and 16-bit pattern plus 2^24 random 32-bit
@@ -28,7 +28,8 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    above it) against the five gemma2-2b K x N shapes and a ragged one
    (N % 4 != 0, K not a multiple of the split), at P16 for M in {1, 4,
    16, 128} against the ten K x N shapes of the mamba2-1.3b and
-   hymba-1.5b paths, plus a misaligned B base, per-element bound
+   hymba-1.5b paths and M = 256 (the eval step of 3g) against hymba's,
+   plus a misaligned B base, per-element bound
    ``1e-5*(|va||vb| + |ra||rb|) + 1e-4``;
    paged flash-decode at the serving geometry and at a long context
    (max_len 4096, positions near 4000; windows None and 4096), max-abs
@@ -71,6 +72,19 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    encode and logmac launched, paged flash-decode not, finite prefill
    logits; then each SMOKE model's logits on the kernels against the
    reference engine;
+3g. training: gemma2-2b SMOKE (L-21b P16, ``lax_ref``, batch 4, seq 64)
+   takes two train steps on the card and on the CPU from one initial
+   state (losses within rtol 1e-4, atol 2e-3); one step replayed from the
+   same state on the card gives a bit-identical loss and state (under
+   ``launch.train.deterministic``); hymba-1.5b FULL (32 layers, d_model
+   1600) trains 3 steps through ``repro_torch.launch.train`` (batch 2,
+   seq 128, seed 0): finite losses and grad norms, every parameter leaf
+   moved, s/step and the peak memory beside what was held before; then
+   one eval step with the trained parameters on ``cuda`` (the fused
+   encode and logmac's tile kernel, M = 256) against ``lax_ref``, within
+   2 (2e-3 + 1e-4 max|logit|); last, the plain codec's peak device bytes
+   per weight value over a forward and backward of a [2304, 25600]
+   weight;
 4. each kernel timed with CUDA events (L2 flushed before every launch)
    beside its plain version, with the least time the card could take:
    ``ms`` with the host's issue of the call inside the window, as every
@@ -85,10 +99,11 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    (the whole call: q's pre-scale and encode, then the three passes) at
    the serving positions, near the end of max_len 256 and at a 4096
    context; the fused encode and logmac (M=4) also at every weight shape
-   of the mamba2-1.3b and hymba-1.5b paths.
+   of the mamba2-1.3b and hymba-1.5b paths, and logmac's tile kernel and
+   the activations' fused encode at hymba's eval shapes (M = 256).
 
 Launch counts are reset just before each path (3, 3b, 3c, 3d, the four
-drains of 3e, each model of 3f) and read just after; each path asserts
+drains of 3e, each model of 3f, the eval step of 3g) and read just after; each path asserts
 the kernels it launches, and the ``launches`` of the kernels line sum
 the paths.  ``--profile`` also
 groups torch's own kernels by name and sums the kinds the pow2 pre-scale
@@ -377,6 +392,9 @@ def main(argv=None) -> int:
                     "4 new tokens) with torch.profiler and print the device "
                     "time by kernel and the device's busy share")
     args = ap.parse_args(argv)
+    # phase 3g replays a train step bit for bit: cuBLAS needs a fixed
+    # workspace, set before the process's first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -392,7 +410,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     from repro_torch.core import posit as P
-    from repro_torch.core.engine import _pow2_scale, from_variant
+    from repro_torch.core.engine import (_pow2_scale, euler_dot_general,
+                                         from_variant)
     from repro_torch.kernels import logmac as LM
     from repro_torch.kernels import ops as OPS
     from repro_torch.kernels import paged_decode as PD
@@ -522,7 +541,7 @@ def main(argv=None) -> int:
                 (K, N), generator=gen, device=dev) * (
                     0.02 if proj == "head" else K ** -0.5)
     for K in NEW_FAMILY_K:
-        for M in (1, 4, 128):
+        for M in (1, 4, 128, 256):
             fused_in[f"activation [{M}, {K}]"] = torch.randn(
                 (M, K), generator=gen, device=dev) * 3.0
     ragged = torch.randn(2304 * 1155 - 3, generator=gen, device=dev)
@@ -699,20 +718,22 @@ def main(argv=None) -> int:
             f"launches bit-identical (max abs diff so far {worst:.3g})")
     # the mamba2-1.3b and hymba-1.5b shapes (phase 3f) at the served P16:
     # decode M = 1 and 4, a prefill M = 16 and the 128-token bucket (the
-    # tile kernel); the plan's split and K step follow (M, N, K)
+    # tile kernel); the plan's split and K step follow (M, N, K).  hymba's
+    # shapes also at M = 256, the eval step of phase 3g (batch 2 x seq 128)
     new_ms = (1, 4, 16, 128)
+    hymba_kn = {(K, N) for K, N, _ in NEW_FAMILY_KN["hymba-1.5b"]}
     for K, N in NEW_FAMILY_KN_SET:
         b = bits((K, N), ecfg.posit)
         planes_b = abs_planes(b, ecfg)
-        for M in new_ms:
+        for M in new_ms + ((256,) if (K, N) in hymba_kn else ()):
             worst = max(worst, check_logmac(
                 bits((M, K), ecfg.posit), b, ecfg, planes_b,
                 f"P16 M={M} K={K} N={N}"))
         del b, planes_b
     log(f"[logmac] P16 L-21b, M in {new_ms} x the mamba2-1.3b and "
-        f"hymba-1.5b shapes {NEW_FAMILY_KN_SET}: within the per-element "
-        f"bound, two launches bit-identical (max abs diff so far "
-        f"{worst:.3g})")
+        f"hymba-1.5b shapes {NEW_FAMILY_KN_SET}, M = 256 x hymba's "
+        f"{sorted(hymba_kn)}: within the per-element bound, two launches "
+        f"bit-identical (max abs diff so far {worst:.3g})")
     # a B operand whose base is not 16-byte aligned takes the scalar loads
     K, N = 2304, 2304
     flat = bits((K * N + 1,), ecfg.posit)
@@ -1182,6 +1203,144 @@ def main(argv=None) -> int:
             f"{float((outs['cuda'] - outs['lax_ref']).abs().max()):.3g}")
         del outs, params, m
 
+    phase_start("3g")
+    # ---- phase 3g: training (the QAT train step on lax_ref, the eval step
+    # on the kernels) ------------------------------------------------------
+    from repro_torch import tree as T
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as TR
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.training import (init_state, make_eval_step,
+                                      make_train_step)
+    lax_nctx = NumericsContext.from_ecfg(ecfg, backend="lax_ref")
+
+    def smoke_trainer(device):
+        m = Model(gemma2_2b.SMOKE, numerics=lax_nctx, device=device)
+        opt = AdamW(lr=cosine_schedule(3e-3, 20, 100), weight_decay=0.01)
+        return m, opt, make_train_step(m, opt, m.make_ctx())
+
+    # the SMOKE model's initial state, drawn once on the CPU
+    cpu_m, cpu_opt, _ = smoke_trainer("cpu")
+    state0 = init_state(cpu_m, cpu_opt, 0)
+    smoke_data = SyntheticLM(vocab=gemma2_2b.SMOKE.vocab, seed=0)
+    with TR.deterministic():
+        # 1. two steps on the card and on the CPU, in this process
+        smoke_loss = {}
+        for device in ("cuda", "cpu"):
+            _, _, step_fn = smoke_trainer(device)
+            st = state0.to(device)
+            smoke_loss[device] = []
+            for i in range(2):
+                st, out = step_fn(st, smoke_data.batch(i, 4, 64,
+                                                       device=device))
+                smoke_loss[device].append(float(out["loss"]))
+        np.testing.assert_allclose(smoke_loss["cuda"], smoke_loss["cpu"],
+                                   rtol=1e-4, atol=2e-3)
+        log(f"[train smoke] gemma2 SMOKE L-21b lax_ref, batch 4 seq 64: "
+            f"losses on the card {smoke_loss['cuda']}, on the CPU "
+            f"{smoke_loss['cpu']}")
+        # 2. the same single step twice from the same init: bit-identical
+        _, _, step_fn = smoke_trainer(dev)
+        runs = []
+        for _ in range(2):
+            st, out = step_fn(state0.to(dev),
+                              smoke_data.batch(0, 4, 64, device=dev))
+            runs.append((float(out["loss"]),
+                         [float(p.detach().double().sum())
+                          for p in T.leaves(st.params)], st))
+        assert runs[0][0] == runs[1][0], (runs[0][0], runs[1][0])
+        assert runs[0][1] == runs[1][1], "parameter sums differ on replay"
+        for a, b in zip(T.leaves(runs[0][2].tree()),
+                        T.leaves(runs[1][2].tree())):
+            assert torch.equal(a, b), "a state leaf differs on replay"
+        log(f"[train determinism] one step replayed: loss {runs[0][0]!r} "
+            f"and all {len(runs[0][1])} parameter leaves bit-identical")
+        del runs, st, state0, cpu_m
+    # 3. hymba-1.5b FULL through the launcher
+    hymba = hymba_1p5b.FULL
+    init_sums = [float(p.double().sum()) for p in
+                 T.leaves(Model(hymba, device=dev).init(0))]
+    torch.cuda.empty_cache()
+    rep = TR.main(["--arch", "hymba-1.5b", "--steps", "3", "--batch", "2",
+                   "--seq", "128", "--log-every", "1", "--euler", "L-21b",
+                   "--width", "16", "--backend", "lax_ref", "--seed", "0",
+                   "--device", "cuda"])
+    assert not torch.are_deterministic_algorithms_enabled()
+    assert (rep["n_layers"], rep["d_model"]) == (hymba.n_layers,
+                                                 hymba.d_model)
+    assert np.isfinite(rep["losses"]).all() and len(rep["losses"]) == 3
+    assert np.isfinite(rep["grad_norms"]).all()
+    params = rep["state"].params
+    sums = [float(p.detach().double().sum()) for p in T.leaves(params)]
+    moved = sum(a != b for a, b in zip(sums, init_sums))
+    assert moved == len(sums), f"{len(sums) - moved} leaves did not move"
+    train_line = {k: rep[k] for k in (
+        "arch", "params", "losses", "grad_norms", "seconds", "s_per_step",
+        "allocated_before", "max_memory_allocated")}
+    train_line["card"] = card
+    log(f"[train hymba-1.5b] {card}: {rep['params']} params, losses "
+        f"{rep['losses']}, grad norms {rep['grad_norms']}, "
+        f"{rep['s_per_step']:.2f} s/step, max_memory_allocated "
+        f"{rep['max_memory_allocated'] / 2**30:.2f} GiB (of it "
+        f"{rep['allocated_before'] / 2**30:.2f} GiB held before the launch); "
+        f"all {moved} parameter leaves moved")
+    log("[train hymba-1.5b] " + json.dumps(train_line))
+    # the eval step with the trained parameters: the kernels against the
+    # reference engine, the logits bar carried through the mean
+    # log-softmax: |d loss| <= 2 (2e-3 + 1e-4 max|logit|)
+    eval_batch = SyntheticLM(vocab=hymba.vocab, seed=0).batch(
+        3, 2, 128, device=dev)
+    evals = {}
+    for backend in ("lax_ref", "cuda"):
+        nctx = NumericsContext.from_ecfg(ecfg, backend=backend)
+        m = Model(hymba, numerics=nctx, device=dev)
+        if backend == "cuda":
+            _build.reset_launches()
+        # the trained parameters require grad; the eval step runs without
+        # autograd by itself
+        evals[backend] = float(make_eval_step(m, m.make_ctx())(
+            params, eval_batch)["loss"])
+        if backend == "cuda":
+            eval_launches = path_launches("eval hymba-1.5b")
+        else:
+            with torch.no_grad():
+                hidden, _ = m.forward(params, eval_batch["inputs"],
+                                      m.make_ctx())
+                max_logit = float(m.head(params, hidden, m.make_ctx())[
+                    ..., :hymba.vocab].abs().max())
+            del hidden
+    bound = 2 * (2e-3 + 1e-4 * max_logit)
+    diff = abs(evals["cuda"] - evals["lax_ref"])
+    assert diff <= bound, (evals, bound)
+    for name in ("posit_encode_prescaled", "logmac"):
+        assert eval_launches[name] > 0, f"{name} not launched in the eval"
+    log(f"[train eval] {card}: hymba-1.5b FULL eval loss cuda "
+        f"{evals['cuda']!r} vs lax_ref {evals['lax_ref']!r}: |diff| "
+        f"{diff:.3g} <= {bound:.3g} (max|logit| {max_logit:.3g}); "
+        f"launches {eval_launches}")
+    del rep, params, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 4. the plain codec's memory: forward and backward of one [2304,
+    # 25600] weight (gemma2's MLP shape, widened) at 256 tokens
+    w = (torch.randn((2304, 25600), generator=gen, device=dev)
+         * 2304 ** -0.5).requires_grad_(True)
+    x = torch.randn((256, 2304), generator=gen, device=dev).requires_grad_(
+        True)
+    torch.cuda.synchronize(dev)
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = euler_dot_general(x, w, (((1,), (0,)), ((), ())), ecfg)
+    out.sum().backward()
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    log(f"[codec memory] {card}: euler_dot_general L-21b forward + "
+        f"backward of f32 [256, 2304] x [2304, 25600]: peak {peak} bytes "
+        f"over the {held} held, {peak / w.numel():.1f} bytes per weight "
+        f"value")
+    del w, x, out
+    torch.cuda.empty_cache()
+
     phase_start("4")
     # ---- phase 4: timings ----------------------------------------------
     flush_buf = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
@@ -1342,6 +1501,48 @@ def main(argv=None) -> int:
                          "floor_ms": instr[16] * K * N
                          / (sms * 128 * clk_mhz * 1e6) * 1e3})
             del a, b
+    # the hymba-1.5b eval step of phase 3g (batch 2 x seq 128, M = 256):
+    # logmac's tile kernel at every projection shape, and the fused encode
+    # of the activations at each K
+    for K, N, what in NEW_FAMILY_KN["hymba-1.5b"]:
+        a, b = bits((256, K), ecfg.posit), bits((K, N), ecfg.posit)
+        ms = time_ms(lambda: LM.logmac(a, b, ecfg), flush=flush)
+        dev_ms = time_ms(lambda: LM.logmac(a, b, ecfg), flush=flush,
+                         device_only=True)
+        pms = time_ms(lambda: LM.logmac_plain(a, b, ecfg), reps=2,
+                      flush=flush)
+        plan = LM._plan(256, N, K)
+        rows.append({"name": "logmac", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/logmac.cu",
+                     "replaces": "src/repro/kernels/logmac.py:136",
+                     "shape": f"hymba-1.5b eval {what}: P16 M=256 K={K} "
+                              f"N={N} ({plan.kind})",
+                     "bytes": (256 * K + K * N + 256 * N) * 4,
+                     "flops": 4 * 256 * N * K, "ms": ms,
+                     "device_ms": dev_ms, "plain_ms": pms,
+                     "floor_ms": instr[16] * K * N
+                     / (sms * 128 * clk_mhz * 1e6) * 1e3})
+        del a, b
+    for K in sorted({K for K, _, _ in NEW_FAMILY_KN["hymba-1.5b"]}):
+        xf = torch.randn((256, K), generator=gen, device=dev)
+
+        def fused():
+            return PC.posit_encode_prescaled(xf, ecfg.posit)
+
+        rows.append({"name": "posit_encode_prescaled", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/"
+                               "posit_encode.cu",
+                     "replaces": "src/repro/kernels/posit_codec.py:73 "
+                                 "and src/repro/core/engine.py:135",
+                     "shape": f"hymba-1.5b eval activation: f32 [256, {K}]",
+                     "bytes": 12 * xf.numel(), "flops": 0,
+                     "ms": time_ms(fused, flush=flush),
+                     "device_ms": time_ms(fused, flush=flush,
+                                          device_only=True),
+                     "plain_ms": time_ms(
+                         lambda: PC.encode_prescaled_plain(xf, ecfg.posit),
+                         reps=3, flush=flush)})
+        del xf
     # paged decode (window 4096, the local layers) at the serving
     # positions, near the end of max_len 256 and at a 4096 context
     for max_len_t, pos_t, pool in (

@@ -3,8 +3,9 @@
 A second package beside the JAX reference (``repro``), with the same layout
 and names: ``core`` (posit codec, ILM planes, engine), ``kernels`` (CUDA C++
 kernels for Hopper with plain PyTorch versions beside them), ``numerics``
-(policies and backends), ``models``, ``configs``, ``serving`` and
-``launch``.  It imports ``torch`` and never ``jax``.
+(policies and backends), ``models``, ``configs``, ``serving``,
+``training``, ``optim``, ``data``, ``distributed`` and ``launch``.  It
+imports ``torch`` and never ``jax``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.  A
 kernel wrapper dispatches on the device of the tensor it is given: a CPU

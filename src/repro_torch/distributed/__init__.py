@@ -1,6 +1,7 @@
-"""Checkpoints and the failover policy of the port (counterpart of
-``repro.distributed``'s ``checkpoint`` and ``failover``; sharding and
-collectives are not ported)."""
-from . import checkpoint, failover
+"""Checkpoints, the failover policy and the numerics of compressed
+gradients (counterpart of ``repro.distributed``'s ``checkpoint``,
+``failover`` and the value-level half of ``collectives``; sharding and the
+collectives themselves are not ported)."""
+from . import checkpoint, collectives, failover
 
-__all__ = ["checkpoint", "failover"]
+__all__ = ["checkpoint", "collectives", "failover"]

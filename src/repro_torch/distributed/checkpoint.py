@@ -64,10 +64,26 @@ def _flatten(tree, path: str = ""):
 
 
 def path_keys(path: str) -> list:
-    """The dict keys and sequence indices of a keystr path:
-    ``"['layers'][0]"`` -> ``['layers', 0]``."""
-    return [k if i == "" else int(i)
-            for k, i in re.findall(r"\['([^']*)'\]|\[(\d+)\]", path)]
+    """The dict keys, attribute names and sequence indices of a keystr
+    path: ``"['layers'][0]"`` -> ``['layers', 0]``; a dataclass field, as
+    in the reference's ``TrainState`` (``".params['embed']"``), gives its
+    name."""
+    return [a or k if i == "" else int(i)
+            for a, k, i in re.findall(r"\.(\w+)|\['([^']*)'\]|\[(\d+)\]",
+                                      path)]
+
+
+def nest(flat: dict) -> dict:
+    """``{keystr path: leaf}`` (what :func:`restore_numpy` returns) as
+    nested dicts, sequence indices as int keys."""
+    tree: dict = {}
+    for path, leaf in flat.items():
+        keys = path_keys(path)
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf
+    return tree
 
 
 def _treedef(tree) -> str:
@@ -193,6 +209,12 @@ def _manifest(ckpt_dir: str, step: int | None):
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "MANIFEST.json")) as f:
         return json.load(f), d, step
+
+
+def leaf_paths(ckpt_dir: str, step: int | None = None) -> list[str]:
+    """A checkpoint's leaf paths, in order, without touching the arrays."""
+    manifest, _, _ = _manifest(ckpt_dir, step)
+    return manifest["paths"]
 
 
 def read_extra(ckpt_dir: str, step: int | None = None):

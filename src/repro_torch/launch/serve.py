@@ -12,10 +12,17 @@ precision (``pin_exact_f32``: no TF32).  ``--arch`` takes gemma2-2b,
 mamba2-1.3b and hymba-1.5b; the last two hold recurrent SSM state and
 serve from a dense cache only (``--paged`` raises).
 
+Numerics: ``--euler``/``--width`` give a uniform policy, ``--policy`` a
+PrecisionPolicy JSON (inline or a file, the reference's schema) through
+``launch.build_numerics``, which both launchers share.  ``--eos-id``
+stops a request at that token; ``--stream`` prints each request as it
+completes.
+
 Weights and durability:
 
-  --ckpt-dir         serve the ``{"params": ...}`` checkpoint the JAX
-                     package wrote there (read with
+  --ckpt-dir         serve the params of a checkpoint the JAX package
+                     wrote there (``{"params": ...}`` or a training
+                     ``TrainState``; read with
                      ``distributed.checkpoint.restore_numpy``, converted
                      with ``params_from_jax``) instead of the seeded init
   --snapshot-dir     durable serving: snapshot the scheduler state there
@@ -46,35 +53,16 @@ import numpy as np
 import torch
 
 from repro_torch import configs as C
-from repro_torch.core.engine import from_variant
 from repro_torch.distributed import checkpoint as CK
 from repro_torch.kernels import _build
-from repro_torch.launch import pin_exact_f32
+from repro_torch.launch import build_numerics, pin_exact_f32
 from repro_torch.models.layers import Ctx
 from repro_torch.models.transformer import Model, params_from_jax
-from repro_torch.numerics import NumericsContext, PrecisionPolicy
+from repro_torch.numerics import NumericsContext
 from repro_torch.numerics import api as napi
-from repro_torch.numerics.backends import guarded
-from repro_torch.reliability.guards import GuardConfig
 from repro_torch.serving import (DurableBatcher, GenerationConfig,
                                  PagedKVConfig, QueueFullError,
                                  RequestBatcher, ServeEngine, SLOConfig)
-
-
-def _backend_name(args) -> str:
-    if not args.guard:
-        return args.backend
-    # record every check, so the summary counts clean checks too (the
-    # reference's launcher records violations only)
-    return guarded(args.backend, GuardConfig(record="full")).name
-
-
-def build_numerics(args, width: int | None = None) -> NumericsContext:
-    """The uniform policy of ``--euler`` at ``width`` (default ``--width``)
-    on the chosen backend, guarded under ``--guard``."""
-    policy = PrecisionPolicy.uniform(
-        from_variant(width or args.width, args.euler))
-    return NumericsContext(policy=policy, backend=_backend_name(args))
 
 
 def build_levels(args, primary: NumericsContext
@@ -83,27 +71,25 @@ def build_levels(args, primary: NumericsContext
     (None without it)."""
     if not args.degrade_ladder:
         return None
+    if args.euler == "exact":
+        raise SystemExit("--degrade-ladder needs a posit format (--euler), "
+                         "not exact")
     widths = [int(w) for w in args.degrade_ladder.split(",") if w]
-    if any(w >= args.width for w in widths):
+    top = primary.policy.default.width
+    if any(w >= top for w in widths):
         raise SystemExit(f"--degrade-ladder widths {widths} must sit "
-                         f"strictly below the primary width {args.width}")
-    return [primary] + [build_numerics(args, w) for w in widths]
+                         f"strictly below the primary width {top}")
+    return [primary] + [build_numerics(args, w, guard=args.guard)
+                        for w in widths]
 
 
 def load_jax_params(ckpt_dir: str, cfg, device):
-    """The ``params`` subtree of a checkpoint the JAX package wrote, as this
-    package's parameter dicts on ``device``."""
-    tree: dict = {}
-    for path, arr in CK.restore_numpy(ckpt_dir).items():
-        keys = CK.path_keys(path)
-        if keys[0] != "params":
-            continue
-        node = tree
-        for k in keys[1:-1]:
-            node = node.setdefault(k, {})
-        node[keys[-1]] = arr
+    """The ``params`` subtree of a checkpoint the JAX package wrote (a
+    ``{"params": ...}`` tree or a ``TrainState``), as this package's
+    parameter dicts on ``device``."""
+    tree = CK.nest(CK.restore_numpy(ckpt_dir)).get("params")
     if not tree:
-        raise KeyError(f"no ['params'] leaves in the checkpoint at {ckpt_dir}")
+        raise KeyError(f"no params leaves in the checkpoint at {ckpt_dir}")
     return params_from_jax(tree, cfg, device=device)
 
 
@@ -118,9 +104,12 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--full", action="store_true",
                     help="serve the FULL configuration (default: SMOKE)")
     ap.add_argument("--euler", default="L-21b",
-                    help="paper variant, L-1 .. L-22b (the exact backend "
-                         "ignores it)")
+                    help="paper variant, L-1 .. L-22b, or 'exact' (the "
+                         "exact backend ignores it)")
     ap.add_argument("--width", type=int, default=16)
+    ap.add_argument("--policy", default="",
+                    help="PrecisionPolicy JSON (inline or file path); "
+                         "overrides --euler/--width for per-layer precision")
     ap.add_argument("--backend", default="lax_ref",
                     choices=("exact", "lax_ref", "cuda"))
     ap.add_argument("--device", default="cuda")
@@ -129,6 +118,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--eos-id", type=int, default=-1,
+                    help="stop a request at this token id (-1: no EOS)")
+    ap.add_argument("--stream", action="store_true",
+                    help="print each request the step it completes")
     ap.add_argument("--ckpt-dir", default="",
                     help="serve the params of a checkpoint the JAX package "
                          "wrote here instead of the seeded init")
@@ -186,9 +179,9 @@ def main(argv=None) -> dict:
     pin_exact_f32()
     mod = C.get_config(args.arch)
     cfg = mod.FULL if args.full else mod.SMOKE
-    nctx = build_numerics(args)
+    nctx = build_numerics(args, guard=args.guard)
     levels = build_levels(args, nctx)
-    model = Model(cfg, numerics=nctx, device=args.device)
+    model = Model(cfg, remat=False, numerics=nctx, device=args.device)
     dev = model.device
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -240,14 +233,18 @@ def main(argv=None) -> dict:
     t0 = time.perf_counter()
 
     def on_complete(rid, toks):
-        done_at.setdefault(rid, time.perf_counter())
+        now = done_at.setdefault(rid, time.perf_counter())
+        if args.stream:
+            print(f"  [{now - t0:6.2f}s] req {rid} done ({len(toks)} "
+                  f"tokens): {toks[:8]}...")
 
     if args.resume:
         results = batcher.resume(on_complete=on_complete)
     else:
         results = batcher.run(
             GenerationConfig(max_new_tokens=args.max_new,
-                             temperature=args.temperature),
+                             temperature=args.temperature,
+                             eos_id=None if args.eos_id < 0 else args.eos_id),
             on_complete=on_complete)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

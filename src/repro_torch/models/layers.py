@@ -114,7 +114,10 @@ def embed_init(gen, vocab_p: int, d: int, device):
 
 
 def embed_apply(p, ids):
-    return p["e"][ids.to(torch.long)]
+    # index_select: its backward (index_add) runs a deterministic algorithm
+    # on a CUDA card under torch.use_deterministic_algorithms
+    rows = torch.index_select(p["e"], 0, ids.reshape(-1).to(torch.long))
+    return rows.reshape(*ids.shape, p["e"].shape[1])
 
 
 def rope(x, positions, theta: float):

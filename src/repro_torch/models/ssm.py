@@ -5,8 +5,11 @@ Counterpart of ``repro.models.ssm``: the chunked SSD algorithm of Dao & Gu
 ``S' = dA * S + dt * (B ⊗ x)``, ``y = C·S'`` with a rolling conv buffer for
 the O(1) decode step.
 
-The reference's ``lax.scan`` over chunks is a Python loop here, with no
-remat (there is no backward pass).  A chunk's four contractions go through
+The reference's ``lax.scan`` over chunks is a Python loop here.  Its
+chunks are not rematerialized one by one: in training the whole block is
+(``Model`` remat), and gradients reach the chunk scan through autograd as
+through ``jax.grad`` in the reference (the log-decay masked before
+``exp``).  A chunk's four contractions go through
 ``repro_torch.numerics`` with the reference's dimension numbers; they have
 batch dimensions, so the ``cuda`` backend runs them on the reference
 engine, as the reference's Pallas backend does.  ``in_proj`` and
@@ -15,7 +18,10 @@ engine, as the reference's Pallas backend does.  ``in_proj`` and
 stay exact f32.
 
 Caches are updated in place: ``ssm_apply`` writes the new state and conv
-tail into the cache views it is given (the reference returns new arrays).
+tail into the cache views it is given (the reference returns new arrays);
+training passes no cache, so no write is ever differentiated.  A
+posit-word cache stores the conv tail as unsigned words, saturated as XLA
+converts them (:func:`conv_to_cache`).
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import numerics as NU  # 'N' is the SSM state dim locally
+from repro_torch.core import posit as _P
 
 from .layers import Ctx, cache_reset, dense_apply, dense_init
 
@@ -66,12 +73,46 @@ def _causal_conv(u, w, b):
     return out + b
 
 
+def conv_to_cache(x, dtype):
+    """The conv tail as a cache of ``dtype`` stores it.  A posit-word cache
+    holds unsigned words (uint16/uint32 in int16/int32 storage); XLA
+    converts a float to an unsigned word by truncating toward zero and
+    saturating to [0, 2^N - 1] (NaN to 0), and so does this."""
+    pc = _P.storage_pc(dtype)
+    if pc is None:
+        return x.to(dtype)
+    w = torch.nan_to_num(x.to(torch.float64).trunc(), nan=0.0)
+    w = w.clamp(0, _P.mask(pc.n_bits)).to(torch.int64)
+    return _P.to_storage(w, pc)
+
+
+def conv_from_cache(c):
+    """A cached conv tail as float32 (integer words read as unsigned)."""
+    pc = _P.storage_pc(c.dtype)
+    if pc is None:
+        return c.to(torch.float32)
+    return _P.from_storage(c, pc).to(torch.float32)
+
+
 def _split_proj(zxbcdt, cfg):
     di, N = cfg.d_inner, cfg.ssm_state
     z = zxbcdt[..., :di]
     xBC = zxbcdt[..., di:2 * di + 2 * N]
     dt = zxbcdt[..., 2 * di + 2 * N:]
     return z, xBC, dt
+
+
+def log_step_scan(x, dim: int):
+    """Inclusive prefix sum along ``dim`` in ceil(log2 n) shifted adds, in
+    an order fixed by the shape alone: deterministic on a card, where
+    torch refuses a float ``cumsum`` under deterministic algorithms."""
+    n, step = x.shape[dim], 1
+    while step < n:
+        shifted = F.pad(x.narrow(dim, 0, n - step).movedim(dim, -1),
+                        (step, 0)).movedim(-1, dim)
+        x = x + shifted
+        step *= 2
+    return x
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, ctx: Ctx, chunk: int, initial_state=None):
@@ -102,7 +143,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, ctx: Ctx, chunk: int, initial_state=None):
         sl = slice(c * Q, (c + 1) * Q)
         xq, dtq, Bq, Cq = x[:, sl], dt[:, sl], Bm[:, sl], Cm[:, sl]
         dA = dtq * A                                           # [B, Q, H]
-        cum = torch.cumsum(dA, dim=1)
+        cum = log_step_scan(dA, 1)
         # intra-chunk dual form: scores[i,j] = C_i · B_j (EULER-quantized)
         dn = (((2,), (2,)), ((0,), (0,)))
         scores = NU.dot_general(Cq, Bq, dn, ctx.numerics, op="qk")
@@ -149,8 +190,8 @@ def ssm_apply(p, x, ctx: Ctx, cfg, cache=None):
     if cache is not None and T == 1:
         # ---- O(1) decode ----
         conv_buf = cache["conv"]  # [B, K-1, conv_dim]
-        window = torch.cat([conv_buf, xBC.to(conv_buf.dtype)], 1)
-        conv_out = torch.einsum("bkc,kc->bc", window.to(torch.float32),
+        window = torch.cat([conv_buf, conv_to_cache(xBC, conv_buf.dtype)], 1)
+        conv_out = torch.einsum("bkc,kc->bc", conv_from_cache(window),
                                 p["conv_w"]) + p["conv_b"]
         conv_out = F.silu(conv_out)[:, None, :]  # [B,1,cd]
         xin = conv_out[..., :di].reshape(Bsz, 1, H, P)
@@ -180,7 +221,8 @@ def ssm_apply(p, x, ctx: Ctx, cfg, cache=None):
     out = dense_apply(p["out_proj"], y.to(x.dtype), ctx)
     if cache is not None:  # prefill: carry the final state + conv tail
         cache["state"].copy_(S_final)
-        cache["conv"].copy_(xBC[:, T - (K - 1):, :].to(cache["conv"].dtype))
+        cache["conv"].copy_(conv_to_cache(xBC[:, T - (K - 1):, :],
+                                          cache["conv"].dtype))
     return out, cache
 
 

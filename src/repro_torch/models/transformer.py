@@ -7,13 +7,20 @@
           then averaged, then an MLP (hymba)
 
 Counterpart of ``repro.models.transformer`` for those families: init,
-forward, head, prefill, decode_step, dense caches (KV slabs, SSM state and
-conv tail) and the paged KV pool (attention-only: ``ssm``/``hybrid`` hold
+forward, head, the T-chunked cross-entropy ``loss``, prefill,
+decode_step, dense caches (KV slabs, SSM state and conv tail) and the
+paged KV pool (attention-only: ``ssm``/``hybrid`` hold
 recurrent state and are refused).  Parameters are plain dicts of tensors:
 ``{"embed": {"e"}, "layers": [per-layer dicts], "ln_f": {"g"}}``; the
 reference's ``lax.scan`` over stacked layers is a host loop over the list.
 :func:`params_from_jax` converts the reference's ``Model.init`` pytree (as
-numpy, layers stacked ``[L, ...]``).
+numpy, layers stacked ``[L, ...]``), and the optimizer moments that mirror
+it.
+
+Remat: under autograd, with no cache, each block and each loss chunk runs
+inside ``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
+reference's ``jax.checkpoint``: its activations are recomputed in the
+backward pass instead of kept.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -22,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import numerics as N
 from repro_torch.core import posit as _P
@@ -34,6 +42,12 @@ from .config import ModelConfig
 from .layers import Ctx
 
 FAMILIES = ("dense", "ssm", "hybrid")
+
+# the reference's remat policies: "none" and "nothing" recompute every
+# activation (``jax.checkpoint``'s default policy saves nothing), and
+# "everything" saves them all, which is no remat; "dots" (save the
+# projections' outputs) has no port yet
+_REMAT_POLICIES = ("none", "nothing", "everything", "dots")
 
 _FLOAT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float16": torch.float16}
@@ -51,16 +65,25 @@ def torch_dtype(dtype) -> torch.dtype:
 
 
 class Model:
-    """init / forward / head / prefill / decode_step for one ModelConfig."""
+    """init / forward / head / loss / prefill / decode_step for one
+    ModelConfig."""
 
     def __init__(self, cfg: ModelConfig, ecfg: EulerConfig | None = None,
+                 remat: bool = True, remat_policy: str = "nothing",
                  numerics: NumericsContext | None = None,
                  device: "str | torch.device" = "cuda"):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ported: "
                 f"{', '.join(FAMILIES)})")
+        if remat_policy not in _REMAT_POLICIES:
+            raise ValueError(f"unknown remat policy {remat_policy!r}")
+        if remat and remat_policy == "dots":
+            raise NotImplementedError(
+                "remat policy 'dots' is not ported yet (ROADMAP queue 1); "
+                "use 'nothing' or 'everything'")
         self.cfg = cfg
+        self.remat = remat and remat_policy != "everything"
         if numerics is None:
             numerics = NumericsContext.from_ecfg(
                 ecfg or EulerConfig(mode="exact"))
@@ -173,6 +196,11 @@ class Model:
         x = x + h.to(x.dtype)
         return x, cache
 
+    def _checkpointed(self, cache) -> bool:
+        """Whether to rematerialize: remat on, autograd recording, and no
+        cache (a cache is written in place, never under autograd)."""
+        return self.remat and cache is None and torch.is_grad_enabled()
+
     def forward(self, params, inputs, ctx: Ctx, cache=None, positions=None):
         """inputs: token ids [B, T] or float embeddings [B, T, d].
         Returns (hidden [B, T, d], cache) — the cache updated in place."""
@@ -189,11 +217,18 @@ class Model:
                 dp = torch.as_tensor(ctx.decode_pos, dtype=torch.int32,
                                      device=x.device)
                 positions = dp.reshape(1) if dp.ndim == 0 else dp[:, None]
+        remat = self._checkpointed(cache)
         for i, (p_l, win) in enumerate(zip(params["layers"],
                                            self.layer_windows())):
             c_l = (None if cache is None else
                    {name: a[i] for name, a in cache.items()})
-            x, _ = self._block(p_l, x, ctx, win, positions, c_l)
+            if remat:
+                x = checkpoint(
+                    lambda p, h, w: self._block(p, h, ctx, w, positions,
+                                                None)[0],
+                    p_l, x, win, use_reentrant=False)
+            else:
+                x, _ = self._block(p_l, x, ctx, win, positions, c_l)
         x = L.rmsnorm_apply(params["ln_f"], x)
         return x, cache
 
@@ -212,6 +247,43 @@ class Model:
             logits = torch.where(pad, torch.tensor(-1e30, device=h.device),
                                  logits)
         return logits
+
+    def _chunk_loss(self, params, h_c, y_c, ctx: Ctx):
+        logits = self.head(params, h_c, ctx)                    # [B,tc,Vp]
+        logz = torch.logsumexp(logits, -1)
+        ll = torch.gather(logits, -1, y_c[..., None].to(torch.long))[..., 0]
+        return torch.sum(logz - ll)
+
+    def loss(self, params, batch, ctx: Ctx):
+        """Mean next-token cross-entropy with T-chunked logits: the head
+        runs on one [B, loss_chunk, V] slab at a time, each rematerialized
+        in the backward pass under remat.
+
+        batch: {"inputs": ids [B, T] or embeds [B, T, d], "labels": ids
+        [B, T]}.  Returns (loss, {"xent", "aux"}); aux is 0 (no MoE family
+        is ported)."""
+        hidden, _ = self.forward(params, batch["inputs"], ctx)
+        labels = batch["labels"]
+        B, T = labels.shape
+        tc = min(self.cfg.loss_chunk, T)
+        if T % tc:
+            raise ValueError(f"sequence length {T} is not a multiple of the "
+                             f"loss chunk {tc}")
+        remat = self._checkpointed(None)
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for c in range(T // tc):
+            h_c = hidden[:, c * tc:(c + 1) * tc]
+            y_c = labels[:, c * tc:(c + 1) * tc]
+            if remat:
+                part = checkpoint(
+                    lambda h, y: self._chunk_loss(params, h, y, ctx),
+                    h_c, y_c, use_reentrant=False)
+            else:
+                part = self._chunk_loss(params, h_c, y_c, ctx)
+            total = total + part
+        xent = total / (B * T)
+        aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        return xent, {"xent": xent, "aux": aux}
 
     # ------------------------------------------------------------------
     # Serving
@@ -275,13 +347,18 @@ class Model:
         return logits, cache
 
 
-def params_from_jax(np_params, cfg: ModelConfig, device="cuda"):
+def params_from_jax(np_params, cfg: ModelConfig, device="cuda",
+                    dtype=torch.float32):
     """The reference's ``Model.init`` pytree, as numpy arrays with layers
-    stacked ``[L, ...]``, converted to this package's parameter dicts."""
+    stacked ``[L, ...]``, converted to this package's parameter dicts.  Any
+    tree that mirrors the parameters converts the same way: the AdamW
+    moments ``opt["m"]``/``opt["v"]`` of a training state, at their
+    ``state_dtype`` (``dtype``)."""
     import numpy as np
 
     def conv(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+            device=device, dtype=dtype)
 
     def layer(tree, i):
         if isinstance(tree, dict):

@@ -16,7 +16,11 @@ Counterpart of ``repro.numerics.backends``:
              flash-decode kernel for integer posit pages under euler qk/pv,
              and the gather reference otherwise.  Each kernel wrapper
              dispatches on its tensors' device, so on CPU tensors the
-             backend runs the kernels' plain versions.
+             backend runs the kernels' plain versions.  Forward only, as
+             the reference's "pallas": the kernels have no backward, so
+             a dot whose operand requires grad while autograd records
+             raises (on every device) and names "lax_ref", the
+             differentiable path.
 
 Two wrappers compose around any base by name, nesting left to right:
 
@@ -127,6 +131,12 @@ class CudaBackend(LaxRefBackend):
     name = "cuda"
 
     def dot_general(self, a, b, dimension_numbers, cfg: EulerConfig):
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            raise RuntimeError(
+                "the 'cuda' backend is forward-only: its kernels have no "
+                "backward pass, so the weights would get no gradient; "
+                "train on the differentiable reference engine, backend "
+                "'lax_ref' (run the cuda backend under torch.no_grad())")
         if cfg.mode != "euler":
             return super().dot_general(a, b, dimension_numbers, cfg)
         pair = _single_contraction(a, b, dimension_numbers)
