@@ -22,15 +22,17 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    six formats: every 8- and 16-bit pattern plus 2^24 random 32-bit
    words), the served P16 format's decode table bit for bit against the
    plain decode, logmac over every 8- and 16-bit pattern (and 2^20
-   32-bit words) as B with K = 1, equal to the plain version, and
-   logmac at P8, P16 and P32 for M in {1, 4, 5, 16, 17, 31, 32,
-   33} (the small-M kernel up to the crossover M = 32, the tile kernel
-   above it) against the five gemma2-2b K x N shapes and a ragged one
+   32-bit words) as B with K = 1 and M in {1, 4, 33, 64}, equal to the
+   plain version, and logmac at P8, P16 and P32 for M in {1, 4, 5, 16,
+   17, 31, 32, 33} (the small-M kernel up to the crossover M = 32; above
+   it the tensor-core kernel at P8 and P16, the f32 tile kernel at P32),
+   at P8 and P16 also for M in {64, 65, 128, 200, 256} and at P32 for
+   M = 128, against the five gemma2-2b K x N shapes and a ragged one
    (N % 4 != 0, K not a multiple of the split), at P16 for M in {1, 4,
    16, 128} against the ten K x N shapes of the mamba2-1.3b and
-   hymba-1.5b paths and M = 256 (the eval step of 3g) against hymba's,
-   plus a misaligned B base, per-element bound
-   ``1e-5*(|va||vb| + |ra||rb|) + 1e-4``;
+   hymba-1.5b paths and at P16 and P8 for M in {33, 64, 65, 128, 200,
+   256} (256: the eval step of 3g) against hymba's, plus a misaligned B
+   base, per-element bound ``1e-5*(|va||vb| + |ra||rb|) + 1e-4``;
    paged flash-decode at the serving geometry and at a long context
    (max_len 4096, positions near 4000; windows None and 4096), max-abs
    <= 1e-3 against the plain version, < 0.05 against the gather
@@ -69,7 +71,9 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
 3f. mamba2-1.3b FULL (48 layers, d_model 2048) and hymba-1.5b FULL (32
    layers, d_model 1600) served through the launcher on ``cuda`` with a
    dense cache (8 requests x 16 tokens, batch 4, max_len 256): the fused
-   encode and logmac launched, paged flash-decode not, finite prefill
+   encode and logmac's small-M kernel launched, its tile kernel and paged
+   flash-decode not; then a 128-token prefill on the served engine
+   (logmac's tensor-core kernel launched, the tile kernel not), finite
    logits; then each SMOKE model's logits on the kernels against the
    reference engine;
 3g. training: gemma2-2b SMOKE (L-21b P16, ``lax_ref``, batch 4, seq 64)
@@ -81,7 +85,8 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    seq 128, seed 0): finite losses and grad norms, every parameter leaf
    moved, s/step and the peak memory beside what was held before; then
    one eval step with the trained parameters on ``cuda`` (the fused
-   encode and logmac's tile kernel, M = 256) against ``lax_ref``, within
+   encode and logmac's tensor-core kernel, M = 256; the tile kernel not)
+   against ``lax_ref``, within
    2 (2e-3 + 1e-4 max|logit|); last, the plain codec's peak device bytes
    per weight value over a forward and backward of a [2304, 25600]
    weight;
@@ -93,14 +98,19 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    the fused encode on the five gemma2-2b weight shapes and a decode
    activation beside the parent route (torch's ``_pow2_scale``, ``/``,
    the plain encode launch) timed in the same run; logmac on the five
-   gemma2-2b shapes at M=4 and at M=16, 32 and 128,
-   with the floor its decode instructions set at the issue rate (SASS of
-   a probe built from the kernel's ``logmac_decode.cuh``), paged decode
+   gemma2-2b shapes at M=4 and at M=16, 32 and 128 (P8 and P32 at M=4
+   and 128), each row under the name of the kernel that ran it
+   (``logmac_small``, ``logmac_mma``, ``logmac_tile``), the mma kernel's
+   bound at fp16's rate and the f32 tile kernel timed beside it on the
+   same inputs, with the floor its decode instructions set at the issue
+   rate (SASS of a probe built from the kernel's ``logmac_decode.cuh``),
+   paged decode
    (the whole call: q's pre-scale and encode, then the three passes) at
    the serving positions, near the end of max_len 256 and at a 4096
    context; the fused encode and logmac (M=4) also at every weight shape
-   of the mamba2-1.3b and hymba-1.5b paths, and logmac's tile kernel and
-   the activations' fused encode at hymba's eval shapes (M = 256).
+   of the mamba2-1.3b and hymba-1.5b paths, and logmac's tensor-core
+   kernel and the activations' fused encode at hymba's eval shapes
+   (M = 256).
 
 Launch counts are reset just before each path (3, 3b, 3c, 3d, the four
 drains of 3e, each model of 3f, the eval step of 3g) and read just after; each path asserts
@@ -112,6 +122,7 @@ is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
 import os
@@ -125,9 +136,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory 3.35 TB/s,
-# float32 outside the tensor cores 67 TFLOP/s.
+# float32 outside the tensor cores 67 TFLOP/s, fp16 on the tensor cores
+# 989 TFLOP/s (logmac's mma kernel).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+FP16_FLOPS = 989e12
 
 GEMMA_KN = [(2304, 2304), (2304, 1152), (2304, 9216), (9216, 2304),
             (2304, 256000)]
@@ -449,9 +462,18 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     ecfg = from_variant(16, "L-21b")
+    # logmac's three kernels are held and listed one by one: the small-M
+    # kernel (M <= 32), the tensor-core kernel (M > 32, P8/P16) and the f32
+    # tile kernel (M > 32, P32)
     errs = {"posit_encode": 0.0, "posit_encode_prescaled": 0.0,
-            "posit_decode": 0.0, "logmac": 0.0, "paged_flash_decode": 0.0}
-    total_launches = dict.fromkeys(errs, 0)
+            "posit_decode": 0.0, "logmac_small": 0.0, "logmac_mma": 0.0,
+            "logmac_tile": 0.0, "paged_flash_decode": 0.0}
+    total_launches = dict.fromkeys(_build.LAUNCHES, 0)
+
+    def logmac_kernel(M, N, K, wcfg) -> str:
+        """The launch counter of the logmac kernel that runs this product."""
+        return LM.KERNEL_OF[LM._plan(M, N, K, LM.mma_key(wcfg.posit,
+                                                         wcfg)).kind]
 
     def path_launches(what: str) -> dict:
         """The counts since the last reset, added to the run's total."""
@@ -646,8 +668,9 @@ def main(argv=None) -> int:
         f"to the plain decode")
     # every 8- and 16-bit pattern, and 2^20 random 32-bit words (0 and NaR
     # among them), as a one-row B with K = 1: each output is one product
-    # per plane, so the kernel (small-M, vector and scalar loads) must equal
-    # the plain version exactly
+    # per plane, so the kernels (small-M, vector and scalar loads; above
+    # M = 32 the tensor-core kernel at P8/P16, the tile kernel at P32) must
+    # equal the plain version exactly
     for width in (8, 16, 32):
         wcfg = from_variant(width, "L-21b")
         if width < 32:
@@ -659,21 +682,25 @@ def main(argv=None) -> int:
                                            (1 << 20,), generator=gen,
                                            dtype=torch.int32, device=dev)])
         for b in (row[None, :], row[None, :-1]):
-            for M in (1, 4):
+            for M in (1, 4, 33, 64):
                 a = bits((M, 1), wcfg.posit)
                 got = LM.logmac(a, b, wcfg)
                 bad = int((got != LM.logmac_plain(a, b, wcfg)).sum())
                 assert bad == 0, (f"logmac P{width} M={M} over every "
                                   f"pattern: {bad} outputs differ")
     log("[logmac] every 8/16-bit pattern and 2^20 32-bit words through B "
-        "(M in (1, 4), N % 4 == 0 and != 0): equal to the plain version")
+        "(M in (1, 4, 33, 64), N % 4 == 0 and != 0): equal to the plain "
+        "version")
 
     # P16 is the served width; P8 is the ladder's width and P32 the guard's
     # escalation width, each encoded by the encode kernel at that width.
     # M: decode batches (1, 4, 5), prefill buckets (16, 32) and their
-    # neighbours, and the crossover to the tile kernel (32 | 33)
+    # neighbours, the crossover (32 | 33), and above it the tensor-core
+    # kernel's row tiles (64 | 65) and prefill, eval and ragged M at P8 and
+    # P16 (P32 keeps the tile kernel: 33 and the 128-token bucket)
     assert LM.SMALL_M_MAX == 32, LM.SMALL_M_MAX
     logmac_ms = (1, 4, 5, 16, 17, 31, 32, 33)
+    mma_ms = (64, 65, 128, 200, 256)
     ragged = (2301, 1155)          # N % 4 != 0, K not a multiple of a split
     assert ragged[1] % 4 and any(
         ragged[0] % LM._plan(M, ragged[1], ragged[0]).ks for M in logmac_ms)
@@ -691,6 +718,7 @@ def main(argv=None) -> int:
         return vb, rb
 
     def check_logmac(a, b, wcfg, planes_b, what):
+        kern = logmac_kernel(a.shape[0], b.shape[1], a.shape[1], wcfg)
         got = LM.logmac(a, b, wcfg)
         again = LM.logmac(a, b, wcfg)
         assert bool((got.view(torch.int32) == again.view(torch.int32)).all()), \
@@ -701,52 +729,65 @@ def main(argv=None) -> int:
         diff = (got - want).abs()
         assert bool((diff <= bound).all()), f"logmac {what} outside its bound"
         assert bool(torch.isfinite(got).all()), f"logmac {what} not finite"
+        errs[kern] = max(errs[kern], float(diff.max()))
         return float(diff.max())
 
     for width in (16, 8, 32):
         wcfg = from_variant(width, "L-21b")
+        ms_w = logmac_ms + (mma_ms if width < 32 else (128,))
         for K, N in GEMMA_KN + [ragged]:
             b = bits((K, N), wcfg.posit)
             planes_b = abs_planes(b, wcfg)
-            for M in logmac_ms:
+            for M in ms_w:
                 a = bits((M, K), wcfg.posit)
                 worst = max(worst, check_logmac(
                     a, b, wcfg, planes_b, f"P{width} M={M} K={K} N={N}"))
             del b, planes_b
-        log(f"[logmac] P{width} L-21b, M in {logmac_ms} x "
+        log(f"[logmac] P{width} L-21b, M in {ms_w} x "
             f"{GEMMA_KN + [ragged]}: within the per-element bound, two "
-            f"launches bit-identical (max abs diff so far {worst:.3g})")
+            f"launches bit-identical (max abs diff so far {worst:.3g}; by "
+            f"kernel {errs['logmac_small']:.3g} / {errs['logmac_mma']:.3g} / "
+            f"{errs['logmac_tile']:.3g})")
     # the mamba2-1.3b and hymba-1.5b shapes (phase 3f) at the served P16:
     # decode M = 1 and 4, a prefill M = 16 and the 128-token bucket (the
     # tile kernel); the plan's split and K step follow (M, N, K).  hymba's
     # shapes also at M = 256, the eval step of phase 3g (batch 2 x seq 128)
+    # hymba's shapes also at the tensor-core kernel's M, at P16 and P8
     new_ms = (1, 4, 16, 128)
+    hymba_ms = (33,) + mma_ms
     hymba_kn = {(K, N) for K, N, _ in NEW_FAMILY_KN["hymba-1.5b"]}
     for K, N in NEW_FAMILY_KN_SET:
-        b = bits((K, N), ecfg.posit)
-        planes_b = abs_planes(b, ecfg)
-        for M in new_ms + ((256,) if (K, N) in hymba_kn else ()):
-            worst = max(worst, check_logmac(
-                bits((M, K), ecfg.posit), b, ecfg, planes_b,
-                f"P16 M={M} K={K} N={N}"))
-        del b, planes_b
+        for wcfg in (ecfg, from_variant(8, "L-21b")):
+            if wcfg is not ecfg and (K, N) not in hymba_kn:
+                continue
+            b = bits((K, N), wcfg.posit)
+            planes_b = abs_planes(b, wcfg)
+            ms_kn = ((new_ms if wcfg is ecfg else ())
+                     + (hymba_ms if (K, N) in hymba_kn else ()))
+            for M in sorted(set(ms_kn)):
+                worst = max(worst, check_logmac(
+                    bits((M, K), wcfg.posit), b, wcfg, planes_b,
+                    f"P{wcfg.width} M={M} K={K} N={N}"))
+            del b, planes_b
     log(f"[logmac] P16 L-21b, M in {new_ms} x the mamba2-1.3b and "
-        f"hymba-1.5b shapes {NEW_FAMILY_KN_SET}, M = 256 x hymba's "
-        f"{sorted(hymba_kn)}: within the per-element bound, two launches "
-        f"bit-identical (max abs diff so far {worst:.3g})")
+        f"hymba-1.5b shapes {NEW_FAMILY_KN_SET}; P16 and P8, M in "
+        f"{hymba_ms} x hymba's {sorted(hymba_kn)}: within the per-element "
+        f"bound, two launches bit-identical (max abs diff so far "
+        f"{worst:.3g})")
     # a B operand whose base is not 16-byte aligned takes the scalar loads
     K, N = 2304, 2304
     flat = bits((K * N + 1,), ecfg.posit)
     b = flat[1:].view(K, N)
     assert b.data_ptr() % 16 != 0
     planes_b = abs_planes(b, ecfg)
-    for M in (4, 16, 32):
+    for M in (4, 16, 32, 64, 128):
         worst = max(worst, check_logmac(bits((M, K), ecfg.posit), b, ecfg,
                                         planes_b, f"P16 M={M} misaligned B"))
     del flat, b, planes_b
-    log(f"[logmac] misaligned B base (P16, M in (4, 16, 32)): within the "
-        f"bound (max abs diff {worst:.3g})")
-    errs["logmac"] = worst
+    log(f"[logmac] misaligned B base (P16, M in (4, 16, 32, 64, 128)): "
+        f"within the bound (max abs diff {worst:.3g}; small / mma / tile "
+        f"{errs['logmac_small']:.3g} / {errs['logmac_mma']:.3g} / "
+        f"{errs['logmac_tile']:.3g})")
 
     # paged flash-decode at the serving geometry, then at a long context
     B, KV, G, hd, ps, max_len = 4, 4, 2, 288, 16, 256
@@ -840,7 +881,8 @@ def main(argv=None) -> int:
     assert rep["n_layers"] == 26 and rep["d_model"] == 2304, rep["arch"]
     assert rep["tokens"] == 128, rep["tokens"]
     assert rep["refills"] >= 1, rep["refills"]
-    for name in ("posit_encode_prescaled", "logmac", "paged_flash_decode"):
+    for name in ("posit_encode_prescaled", "logmac_small",
+                 "paged_flash_decode"):
         assert launches[name] > 0, f"kernel {name} was not launched in serving"
     assert rep["launches_by_width"]["posit_encode_prescaled"].get(16, 0) > 0
     eng = rep["engine"]
@@ -1163,14 +1205,23 @@ def main(argv=None) -> int:
         assert (rep["n_layers"], rep["d_model"]) == (
             mod.FULL.n_layers, mod.FULL.d_model), rep["arch"]
         assert rep["tokens"] == 128, rep["tokens"]
-        for name in ("posit_encode_prescaled", "logmac"):
+        # the launcher's prompts (4-23 tokens, buckets 32 and 128) prefill
+        # at M = 32: the small-M kernel takes them and every decode step
+        for name in ("posit_encode_prescaled", "logmac_small"):
             assert launches[name] > 0, f"{name} not launched serving {arch}"
+        assert launches["logmac_tile"] == 0, launches
         assert launches["paged_flash_decode"] == 0, launches
+        # a prefill of the 128-token bucket (RequestBatcher's default
+        # first bucket): its projections take the tensor-core kernel, never
+        # the tile kernel (the head, on the last position, the small one)
         eng = rep["engine"]
         first = next(iter(rep["results"].values()))
-        logits, _ = eng.model.prefill(
-            eng.params, torch.as_tensor(first[:16], device=dev)[None, :],
-            eng.ctx, eng.model.init_cache(1, 16))
+        ids128 = torch.as_tensor((list(first) * 128)[:128], device=dev)
+        _build.reset_launches()
+        logits, _ = eng.model.prefill(eng.params, ids128[None, :], eng.ctx,
+                                      eng.model.init_cache(1, 128))
+        pre = path_launches(f"prefill {arch} 128 tokens")
+        assert pre["logmac_mma"] > 0 and pre["logmac_tile"] == 0, pre
         assert logits.shape == (1, mod.FULL.vocab_padded)
         assert bool(torch.isfinite(logits).all()), f"non-finite {arch} logits"
         log(f"[serve {arch}] {card}: {rep['tok_per_s']:.2f} tok/s, request "
@@ -1312,8 +1363,9 @@ def main(argv=None) -> int:
     bound = 2 * (2e-3 + 1e-4 * max_logit)
     diff = abs(evals["cuda"] - evals["lax_ref"])
     assert diff <= bound, (evals, bound)
-    for name in ("posit_encode_prescaled", "logmac"):
+    for name in ("posit_encode_prescaled", "logmac_mma"):
         assert eval_launches[name] > 0, f"{name} not launched in the eval"
+    assert eval_launches["logmac_tile"] == 0, eval_launches
     log(f"[train eval] {card}: hymba-1.5b FULL eval loss cuda "
         f"{evals['cuda']!r} vs lax_ref {evals['lax_ref']!r}: |diff| "
         f"{diff:.3g} <= {bound:.3g} (max|logit| {max_logit:.3g}); "
@@ -1419,11 +1471,55 @@ def main(argv=None) -> int:
                  "ms": dec_ms, "device_ms": dec_dev, "plain_ms": dec_plain})
     del pw
     # logmac: every projection shape at decode width (M=4) at P16, the
-    # prefill buckets (M=16, 32) and the tile kernel (M=128) on the MLP
+    # prefill buckets (M=16, 32) and the 128-token bucket (M=128: the
+    # tensor-core kernel at P16 and P8, the tile kernel at P32) on the MLP
     # shape, and decode width at the ladder's P8 and the guard's P32 (4 B
-    # per weight word at every width, so one bound formula).  floor_ms: the
+    # per weight word at every width, so one byte formula; the mma kernel's
+    # operations at fp16's rate, the others' at f32's).  floor_ms: the
     # SASS instructions that decode the K*N weight words, issued at one per
-    # lane per clock (4 x 32 lanes per SM) at the card's top SM clock
+    # lane per clock (4 x 32 lanes per SM) at the card's top SM clock.
+    # Beside each mma row, the f32 tile kernel (unchanged since it took
+    # every M > 32) on the same inputs
+    tile_fn = _build.function("logmac", "logmac_launch",
+                              [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+                              + [ctypes.c_void_p])
+
+    def tile_kernel(a, b, wcfg):
+        out = torch.empty((a.shape[0], b.shape[1]), device=dev)
+        _build.check(tile_fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                             a.shape[0], b.shape[1], a.shape[1],
+                             *LM._format_args(wcfg), _build.stream_ptr(a)),
+                     "logmac tile")
+        return out
+
+    def logmac_row(M, K, N, wcfg, what, reps=10, plain_reps=3):
+        a, b = bits((M, K), wcfg.posit), bits((K, N), wcfg.posit)
+        plan = LM._plan(M, N, K, LM.mma_key(wcfg.posit, wcfg))
+        row = {"name": LM.KERNEL_OF[plan.kind], "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/logmac.cu",
+               "replaces": "src/repro/kernels/logmac.py:136",
+               "shape": f"{what}P{wcfg.width} M={M} K={K} N={N} ("
+                        f"{plan.kind}, {plan.blocks(N, M)} blocks, "
+                        f"S={plan.splits})",
+               "bytes": (M * K + K * N + M * N) * 4,
+               "flops": 4 * M * N * K,
+               "peak": FP16_FLOPS if plan.kind == "mma" else FP32_FLOPS,
+               "ms": time_ms(lambda: LM.logmac(a, b, wcfg), reps=reps,
+                             flush=flush),
+               "device_ms": time_ms(lambda: LM.logmac(a, b, wcfg),
+                                    reps=reps, flush=flush,
+                                    device_only=True),
+               "plain_ms": time_ms(lambda: LM.logmac_plain(a, b, wcfg),
+                                   reps=plain_reps, flush=flush),
+               "floor_ms": instr[wcfg.width] * K * N
+               / (sms * 128 * clk_mhz * 1e6) * 1e3}
+        if plan.kind == "mma":
+            row["tile_device_ms"] = time_ms(lambda: tile_kernel(a, b, wcfg),
+                                            reps=reps, flush=flush,
+                                            device_only=True)
+        del a, b
+        rows.append(row)
+
     instr = decode_instructions(_build.build_dir(), _build.CSRC)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clk_mhz = float(subprocess.run(
@@ -1436,29 +1532,12 @@ def main(argv=None) -> int:
     shapes = ([(16, 4, *mlp)] + [(16, 4, K, N) for K, N in GEMMA_KN
                                  if (K, N) != mlp]
               + [(16, M, *mlp) for M in (16, 32, 128)]
-              + [(8, 4, *mlp), (32, 4, *mlp)])
+              + [(8, 4, *mlp), (32, 4, *mlp), (8, 128, *mlp),
+                 (32, 128, *mlp)])
     for width, M, K, N in shapes:
-        wcfg = from_variant(width, "L-21b")
-        a, b = bits((M, K), wcfg.posit), bits((K, N), wcfg.posit)
         big = N > 100000
-        ms = time_ms(lambda: LM.logmac(a, b, wcfg), reps=5 if big else 10,
-                     flush=flush)
-        dev_ms = time_ms(lambda: LM.logmac(a, b, wcfg), reps=5 if big else 10,
-                         flush=flush, device_only=True)
-        pms = time_ms(lambda: LM.logmac_plain(a, b, wcfg), reps=2 if big else 3,
-                      flush=flush)
-        plan = LM._plan(M, N, K)
-        rows.append({"name": "logmac", "route": "cuda",
-                     "source": "src/repro_torch/kernels/csrc/logmac.cu",
-                     "replaces": "src/repro/kernels/logmac.py:136",
-                     "shape": f"P{width} M={M} K={K} N={N} ({plan.kind}, "
-                              f"{plan.blocks(N)} blocks, S={plan.splits})",
-                     "bytes": (M * K + K * N + M * N) * 4,
-                     "flops": 4 * M * N * K, "ms": ms, "device_ms": dev_ms,
-                     "plain_ms": pms,
-                     "floor_ms": instr[width] * K * N
-                     / (sms * 128 * clk_mhz * 1e6) * 1e3})
-        del a, b
+        logmac_row(M, K, N, from_variant(width, "L-21b"), "",
+                   reps=5 if big else 10, plain_reps=2 if big else 3)
     # the fused encode and logmac (P16, decode width M=4) at the weight
     # shapes of the mamba2-1.3b and hymba-1.5b paths (phase 3f), at the
     # model init's scale
@@ -1485,44 +1564,13 @@ def main(argv=None) -> int:
                          "bytes": 12 * nv, "flops": 0, "ms": ms,
                          "device_ms": dev_ms, "plain_ms": pms})
             del xf
-            a, b = bits((4, K), ecfg.posit), bits((K, N), ecfg.posit)
-            ms = time_ms(lambda: LM.logmac(a, b, ecfg), flush=flush)
-            dev_ms = time_ms(lambda: LM.logmac(a, b, ecfg), flush=flush,
-                             device_only=True)
-            pms = time_ms(lambda: LM.logmac_plain(a, b, ecfg), reps=2,
-                          flush=flush)
-            rows.append({"name": "logmac", "route": "cuda",
-                         "source": "src/repro_torch/kernels/csrc/logmac.cu",
-                         "replaces": "src/repro/kernels/logmac.py:136",
-                         "shape": f"{arch} {what}: P16 M=4 K={K} N={N}",
-                         "bytes": (4 * K + K * N + 4 * N) * 4,
-                         "flops": 4 * 4 * N * K, "ms": ms,
-                         "device_ms": dev_ms, "plain_ms": pms,
-                         "floor_ms": instr[16] * K * N
-                         / (sms * 128 * clk_mhz * 1e6) * 1e3})
-            del a, b
+            logmac_row(4, K, N, ecfg, f"{arch} {what}: ", plain_reps=2)
     # the hymba-1.5b eval step of phase 3g (batch 2 x seq 128, M = 256):
-    # logmac's tile kernel at every projection shape, and the fused encode
-    # of the activations at each K
+    # logmac's tensor-core kernel at every projection shape, and the fused
+    # encode of the activations at each K
     for K, N, what in NEW_FAMILY_KN["hymba-1.5b"]:
-        a, b = bits((256, K), ecfg.posit), bits((K, N), ecfg.posit)
-        ms = time_ms(lambda: LM.logmac(a, b, ecfg), flush=flush)
-        dev_ms = time_ms(lambda: LM.logmac(a, b, ecfg), flush=flush,
-                         device_only=True)
-        pms = time_ms(lambda: LM.logmac_plain(a, b, ecfg), reps=2,
-                      flush=flush)
-        plan = LM._plan(256, N, K)
-        rows.append({"name": "logmac", "route": "cuda",
-                     "source": "src/repro_torch/kernels/csrc/logmac.cu",
-                     "replaces": "src/repro/kernels/logmac.py:136",
-                     "shape": f"hymba-1.5b eval {what}: P16 M=256 K={K} "
-                              f"N={N} ({plan.kind})",
-                     "bytes": (256 * K + K * N + 256 * N) * 4,
-                     "flops": 4 * 256 * N * K, "ms": ms,
-                     "device_ms": dev_ms, "plain_ms": pms,
-                     "floor_ms": instr[16] * K * N
-                     / (sms * 128 * clk_mhz * 1e6) * 1e3})
-        del a, b
+        logmac_row(256, K, N, ecfg, f"hymba-1.5b eval {what}: ",
+                   plain_reps=2)
     for K in sorted({K for K, _, _ in NEW_FAMILY_KN["hymba-1.5b"]}):
         xf = torch.randn((256, K), generator=gen, device=dev)
 
@@ -1572,12 +1620,16 @@ def main(argv=None) -> int:
                      "ms": ms, "device_ms": dev_ms, "plain_ms": pms})
     for r in rows:
         bb = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        bo = r["flops"] / FP32_FLOPS * 1e3
+        bo = r["flops"] / r.get("peak", FP32_FLOPS) * 1e3
         r["bound_ms"] = max(bb, bo)
         r["bound_by"] = "bytes" if bb >= bo else "operations"
         extra = ""
         if "floor_ms" in r:
             extra += f", decode-instruction floor {r['floor_ms']:.4f} ms"
+        if "tile_device_ms" in r:
+            extra += (f", f32 bound {max(bb, r['flops'] / FP32_FLOPS * 1e3):.4f}"
+                      f" ms; the f32 tile kernel on the same inputs "
+                      f"{r['tile_device_ms']:.4f} ms device time")
         plain = ("not measured" if r["plain_ms"] is None
                  else f"{r['plain_ms']:.4f} ms")
         log(f"[time] {card}: {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms "
@@ -1590,10 +1642,12 @@ def main(argv=None) -> int:
         f"{ {k: round(v, 1) for k, v in phase_s.items()} }")
 
     kernels = []
-    # each kernel's first row: the encodes and logmac P16 M=4 at the MLP
-    # shape, paged decode at the serving positions
+    # each kernel's first row: the encodes and logmac at the MLP shape
+    # (small-M: P16 M=4; mma: P16 M=128; tile: P32 M=128), paged decode at
+    # the serving positions
     for name in ("posit_encode", "posit_encode_prescaled", "posit_decode",
-                 "logmac", "paged_flash_decode"):
+                 "logmac_small", "logmac_mma", "logmac_tile",
+                 "paged_flash_decode"):
         r = next(r for r in rows if r["name"] == name)
         kernels.append({
             "name": name, "route": r["route"], "source": r["source"],

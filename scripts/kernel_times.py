@@ -14,7 +14,14 @@ plain ``posit_encode`` in every checkout, and, but for the head, the plain
 encode's device time after a read of x (does the fused call's second read
 of x reach HBM?); logmac at P16 L-21b, M=4, on
 the five gemma2-2b projection shapes and at M=16 and 32 on the MLP
-shape, and one paged flash-decode call at the serving geometry (B=4,
+shape, logmac above the crossover (M > 32) at the rows PERF.md keeps:
+M=128 on the MLP shape and M=256 on hymba-1.5b's seven eval shapes
+(whichever kernel the checkout runs there: the tensor-core kernel since
+it exists, the f32 tile kernel before), with ``torch.matmul`` of the
+already-decoded fp16 planes ``[va | ra] @ [vb ; -rb]`` at the same
+shapes as a yardstick of the product alone (not the same function: the
+decode is done beforehand and the output is fp16), and one paged
+flash-decode call at the serving geometry (B=4,
 KV=4, G=2, hd=288, page 16, uint16 words, positions 21-40, window 4096), each with the same seeded inputs, as the
 mean of 10 calls timed with CUDA events (L2 flushed first) by
 ``chip_smoke.time_ms``: ``ms`` with the host's issue of the call inside
@@ -37,6 +44,10 @@ from chip_smoke import card_line, random_words, time_ms  # noqa: E402
 
 GEMMA_KN = [(2304, 9216), (2304, 2304), (2304, 1152), (9216, 2304),
             (2304, 256000)]
+# hymba-1.5b's projections (K, N): in_proj, out_proj, q/o, k/v, gate/up,
+# down, head; its eval step runs them at M = 256
+HYMBA_KN = [(1600, 6482), (3200, 1600), (1600, 1600), (1600, 320),
+            (1600, 5504), (5504, 1600), (1600, 32016)]
 
 
 def main(argv=None) -> int:
@@ -106,6 +117,18 @@ def main(argv=None) -> int:
         rows[f"logmac P16 M={M} K={K} N={N}"] = both(
             lambda: LM.logmac(a, b, ecfg))
         del a, b
+    for M, (K, N) in [(128, (2304, 9216))] + [(256, kn) for kn in HYMBA_KN]:
+        a, b = bits((M, K), ecfg.posit), bits((K, N), ecfg.posit)
+        rows[f"logmac P16 M={M} K={K} N={N}"] = both(
+            lambda: LM.logmac(a, b, ecfg))
+        va, ra = LM.decode_planes(a, ecfg)
+        vb, rb = LM.decode_planes(b, ecfg)
+        a16 = torch.cat([va, ra], 1).half()
+        b16 = torch.cat([vb, -rb], 0).half()
+        del a, b, va, ra, vb, rb
+        rows[f"torch.matmul fp16 planes M={M} K={K} N={N}"] = both(
+            lambda: torch.matmul(a16, b16))
+        del a16, b16
     B, KV, G, hd, ps, nlp = 4, 4, 2, 288, 16, 16
     pos = torch.tensor([40, 33, 27, 21], dtype=torch.int32, device=dev)
     table = torch.zeros((B, nlp), dtype=torch.int32)

@@ -125,8 +125,12 @@ def check(err: int, what: str) -> None:
 # nowhere else (a plain-version call on a CPU tensor does not count); a
 # wrapper call counts one launch however many kernels it starts.
 # ``WIDTH_LAUNCHES`` splits the same launches by posit word width.
+# ``logmac`` counts every logmac launch, and ``logmac_small``,
+# ``logmac_mma`` and ``logmac_tile`` the same launches by the kernel that
+# ran (``kernels/logmac.py: _plan``).
 LAUNCHES = {"posit_encode": 0, "posit_encode_prescaled": 0,
-            "posit_decode": 0, "logmac": 0, "paged_flash_decode": 0}
+            "posit_decode": 0, "logmac": 0, "logmac_small": 0,
+            "logmac_mma": 0, "logmac_tile": 0, "paged_flash_decode": 0}
 WIDTH_LAUNCHES: dict[str, dict[int, int]] = {k: {} for k in LAUNCHES}
 
 

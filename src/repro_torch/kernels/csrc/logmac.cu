@@ -4,39 +4,70 @@
 // (pl.pallas_call at :168, entry logmac :150).  Inputs are posit patterns
 // (uint32 words, low N bits valid), the output is the f32 "quire" value.
 // Every word is decoded into the (val, rem) ILM planes euler::decode_planes
-// gives, the counterpart of decode_planes_raw.  fp32 CUDA
-// cores are used rather than TF32/bf16 MMA: P16 L-21b planes carry 9
-// significant bits, which bf16 does not hold exactly.  No float atomics:
-// two launches on the same input give the same bits.
+// gives, the counterpart of decode_planes_raw.  No float atomics: two
+// launches on the same input give the same bits.  The wrapper
+// (kernels/logmac.py: _plan) picks one of three kernels from M and the
+// format alone:
 //
-// What bounds it on the H100.  Every main-path launch has M <= 32 (decode
-// M = batch, prefill M = 16 or 32).  There the work is the K x N weight
-// words: 4 bytes each (3.35 TB/s) against the decode of each word into two
-// planes (euler::decode_planes: some 50 SASS instructions for P16) and
-// only 4*M FMAs.  Decoded arithmetically, the words' integer work bounds
-// the kernel, not their bytes.  So:
-//
-// * logmac_small_kernel (M <= 32) decodes each B word exactly once and
-//   feeds it to all M rows.  A block owns SM_BN = 128 columns and one
-//   K-split; its 8 warps are WN along N and WK along K.  A thread owns CPT
-//   consecutive columns (4, 2 or 1 as M grows, so that its MR x CPT x 2
-//   accumulators stay at <= 64 registers) and loads their words with one
-//   16/8/4-byte load per K row, coalesced across the warp, U rows at a
-//   time with the next U in flight.  A's rows of the K-slice are decoded
-//   once per block into shared memory as two planes, [k][MR], read as
-//   float4 broadcasts.  The served P16 words decode through a 4096-entry
-//   table in shared memory and P8 through a 256-entry one (both built by
-//   euler::decode_planes; logmac_decode.cuh), which leaves them bound by
-//   their bytes; P32 L-21b decodes arithmetically with its knobs as
-//   constants, any other format with its knobs read at run time.
-//   The WK warp groups' partial sums are added in a fixed order through
-//   shared memory; with S K-splits each block writes its v and r partials
-//   to a [S, 2, M, N] scratch and logmac_splitk_reduce adds them in split
-//   order and subtracts r from v, as the reference does; with S = 1 the
-//   block writes C directly.  The plan (kernels/logmac.py: _plan) picks S
-//   so that the grid is one wave of two blocks per SM.
-// * logmac_kernel (M > 32): the 64x64 shared-memory tile kernel; each
-//   element of an A or B tile is decoded once per tile.
+// * logmac_small_kernel (M <= 32: decode steps, short prefills).  Here the
+//   work is the K x N weight words: 4 bytes each (3.35 TB/s) against their
+//   decode into two planes and only 4*M FMAs a word, so the decode's
+//   integer work or the words' bytes bound it, not the FMAs.  It decodes
+//   each B word exactly once and feeds it to all M rows.  A block owns
+//   SM_BN = 128 columns and one K-split; its 8 warps are WN along N and WK
+//   along K.  A thread owns CPT consecutive columns (4, 2 or 1 as M grows,
+//   so that its MR x CPT x 2 accumulators stay at <= 64 registers) and
+//   loads their words with one 16/8/4-byte load per K row, coalesced
+//   across the warp, U rows at a time with the next U in flight.  A's rows
+//   of the K-slice are decoded once per block into shared memory as two
+//   planes, [k][MR], read as float4 broadcasts.  The served P16 words
+//   decode through a 4096-entry table in shared memory and P8 through a
+//   256-entry one (both built by euler::decode_planes; logmac_decode.cuh),
+//   which leaves them bound by their bytes; P32 L-21b decodes
+//   arithmetically with its knobs as constants, any other format with its
+//   knobs read at run time.  The WK warp groups' partial sums are added in
+//   a fixed order through shared memory; with S K-splits each block writes
+//   its v and r partials to a [S, 2, M, N] scratch and logmac_splitk_reduce
+//   adds them in split order and subtracts r from v, as the reference
+//   does; with S = 1 the block writes C directly.  S is picked so that the
+//   grid is one wave of two blocks per SM.
+// * logmac_mma_kernel (M > 32, formats whose planes are exact in fp16:
+//   kernels/logmac.py: mma_key, P8 and P16 L-21b).  A nonzero val plane is
+//   +-2^(scale - m) * j with j < 2^(m + 1) (m kept fraction bits) and the
+//   rem plane keeps a subset of its bits; P16 L-21b has m = 8 and scales
+//   in [-6, 5] (the rem plane's lowest bit 2^-16, an fp16 subnormal), P8
+//   L-21b m = 4 and scales in [-2, 1]: every plane value is an fp16 value,
+//   and the product of two, at most 9 x 9 = 18 bits, is exact in an f32
+//   accumulator.  So mma.sync m16n8k16 (fp16 in, f32 accumulate) computes
+//   the very products of the f32 kernels; only the order of the f32 sums
+//   differs, within chip_smoke's per-element bound, and at K = 1 the
+//   result is exact (va*vb - ra*rb of such planes fits an f32).  A block
+//   owns 128 columns and 64 or 128 rows (8 warps, 2 x 4, each a 32 x 32 or
+//   64 x 32 warp tile) and one K-split.  Its raw words come in through a
+//   ring of MMA_STAGES shared-memory stages of 16 K rows by cp.async
+//   (16-byte copies where the bases and rows allow, else 4-byte), the copy
+//   of stage s+2 in flight while stage s+1 is decoded and stage s is
+//   multiplied (two decoded buffers, one barrier per stage).  Each stage is
+//   decoded once per block through an fp16 (val, rem) table in shared
+//   memory (the P16 table converted from logmac_table16's, the P8 one built
+//   per block) into A rows [va | ra] and B rows [vb ; -rb], read by
+//   ldmatrix (.trans for B); both planes share one accumulator, a product
+//   of depth 2K, which halves the accumulator registers (two blocks an SM,
+//   105 KB of shared memory each).  Split-K partials go to
+//   an [S, M, N] scratch that logmac_mma_reduce adds in split order; the
+//   plan aims at one wave of two blocks per SM.  What bounds it: at the
+//   fp16 rate the products are far below the bytes (4MNK / 989 TFLOP/s is
+//   0.011 ms at M=128 [2304, 9216] against 0.027 ms of words at 3.35 TB/s),
+//   and per stage the shared-memory traffic of the decode (table lookups
+//   that conflict on random words, the raw words read and the planes
+//   written) and of ldmatrix sets the pace, with mma.sync, not wgmma.
+// * logmac_kernel (M > 32, formats mma_key refuses: P32 L-21b, whose val
+//   plane has 17 significant bits): the 64x64 f32 shared-memory tile
+//   kernel on CUDA cores (two fmaf per plane pair, at most 67 TFLOP/s);
+//   each element of an A or B tile is decoded arithmetically once per
+//   tile, synchronous loads, no K-split.  P32 is the guard's escalation
+//   format only.
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include "logmac_decode.cuh"
 
@@ -380,6 +411,321 @@ static int launch_small_mr(bool vec, int fmt, const uint32_t* A,
                                        S, pc, pl, sub_rem, st);
 }
 
+// ---- the tensor-core kernel (M > 32, planes exact in fp16) ---------------
+
+constexpr int MMA_THREADS = 256;   // 8 warps: 2 along M x 4 along N
+constexpr int MMA_BN = 128;        // output columns per block
+constexpr int MMA_BK = 16;         // K rows per pipeline stage
+constexpr int MMA_STAGES = 3;      // raw-word stages in the ring (cp.async)
+constexpr int MMA_BPS = 2;         // blocks per SM (launch bounds; 105 KB
+                                   // of shared memory each at 128 rows)
+constexpr int MMA_LDA = MMA_BK + 8;   // halves per decoded A row (padding:
+constexpr int MMA_LDB = MMA_BN + 8;   // ldmatrix rows hit distinct banks)
+
+template <int TM>
+struct MmaShape {
+  static constexpr int MI = TM / 32;   // m16 tiles per warp (warp: TM/2 rows)
+  static constexpr int NI = 4;         // n8 tiles per warp (warp: 32 cols)
+  static constexpr int RAW_A = TM * MMA_BK;            // words per stage
+  static constexpr int RAW_B = MMA_BK * MMA_BN;
+  static constexpr int PL_A = 2 * TM * MMA_LDA;        // halves: val, rem
+  static constexpr int PL_B = 2 * MMA_BK * MMA_LDB;
+  // dynamic shared memory: the raw ring, two decoded buffers, the table
+  static constexpr int BYTES = MMA_STAGES * (RAW_A + RAW_B) * 4 +
+                               2 * (PL_A + PL_B) * 2 + TABLE16 * 4;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(full ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// d += a (16x16, row) * b (16x8, col): fp16 in, f32 accumulate
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A word's planes as one half2 word (val low, rem high) from the fp16
+// table: FMT_TABLE8 indexes the 256 patterns; FMT_TABLE16 the top 12 body
+// bits, the sign flipping both halves (as decode_word does in f32)
+template <int FMT>
+__device__ __forceinline__ uint32_t half_planes(uint32_t w,
+                                                const uint32_t* tab) {
+  if constexpr (FMT == FMT_TABLE8) {
+    return tab[w & 0xFFu];
+  } else {
+    const uint32_t p = w & 0xFFFFu, sign = p >> 15;
+    const uint32_t body = (sign ? 0u - p : p) & 0x7FFFu;
+    const uint32_t t = tab[body >> 3] ^ (sign ? 0x80008000u : 0u);
+    return body ? t : 0u;
+  }
+}
+
+// One stage of raw words: A rows [m0, m0 + TM) x K rows [k0, k0 + BK), B K
+// rows [k0, k0 + BK) x columns [n0, n0 + BN); words past M, N or kend are
+// zero-filled (a zero word has zero planes).  VEC: 16-byte copies (bases
+// 16-byte aligned, K and N multiples of 4), else 4-byte copies.
+template <int TM, bool VEC>
+__device__ __forceinline__ void load_stage(
+    uint32_t* __restrict__ ra, uint32_t* __restrict__ rb,
+    const uint32_t* __restrict__ A, const uint32_t* __restrict__ B, int M,
+    int N, int K, int m0, int n0, int k0, int kend, int tid) {
+  constexpr int W = VEC ? 4 : 1;
+  constexpr int ACH = TM * MMA_BK / W, BCH = MMA_BK * MMA_BN / W;
+#pragma unroll
+  for (int c = tid; c < ACH; c += MMA_THREADS) {
+    const int m = c / (MMA_BK / W), k = (c % (MMA_BK / W)) * W;
+    const bool in = m0 + m < M && k0 + k < kend;
+    const uint32_t* src = in ? A + (size_t)(m0 + m) * K + k0 + k : A;
+    if constexpr (VEC) cp_async16(ra + m * MMA_BK + k, src, in);
+    else cp_async4(ra + m * MMA_BK + k, src, in);
+  }
+#pragma unroll
+  for (int c = tid; c < BCH; c += MMA_THREADS) {
+    const int k = c / (MMA_BN / W), n = (c % (MMA_BN / W)) * W;
+    const bool in = k0 + k < kend && n0 + n < N;
+    const uint32_t* src = in ? B + (size_t)(k0 + k) * N + n0 + n : B;
+    if constexpr (VEC) cp_async16(rb + k * MMA_BN + n, src, in);
+    else cp_async4(rb + k * MMA_BN + n, src, in);
+  }
+}
+
+// Decode one stage into fp16 planes, two words a thread at a time: A as
+// [val | rem] rows [m][k], B as [val ; -rem] rows [k][n], so one f32
+// accumulator takes sum va*vb + sum ra*(-rb)
+template <int TM, int FMT>
+__device__ __forceinline__ void decode_stage(
+    const uint32_t* __restrict__ ra, const uint32_t* __restrict__ rb,
+    __half* __restrict__ pa, __half* __restrict__ pb,
+    const uint32_t* __restrict__ tab, int tid) {
+#pragma unroll
+  for (int p = tid; p < TM * MMA_BK / 2; p += MMA_THREADS) {
+    const int m = p / (MMA_BK / 2), k = (p % (MMA_BK / 2)) * 2;
+    const uint2 w = *reinterpret_cast<const uint2*>(ra + m * MMA_BK + k);
+    const uint32_t t0 = half_planes<FMT>(w.x, tab);
+    const uint32_t t1 = half_planes<FMT>(w.y, tab);
+    *reinterpret_cast<uint32_t*>(pa + m * MMA_LDA + k) =
+        __byte_perm(t0, t1, 0x5410);
+    *reinterpret_cast<uint32_t*>(pa + TM * MMA_LDA + m * MMA_LDA + k) =
+        __byte_perm(t0, t1, 0x7632);
+  }
+#pragma unroll
+  for (int p = tid; p < MMA_BK * MMA_BN / 2; p += MMA_THREADS) {
+    const int k = p / (MMA_BN / 2), n = (p % (MMA_BN / 2)) * 2;
+    const uint2 w = *reinterpret_cast<const uint2*>(rb + k * MMA_BN + n);
+    const uint32_t t0 = half_planes<FMT>(w.x, tab);
+    const uint32_t t1 = half_planes<FMT>(w.y, tab);
+    *reinterpret_cast<uint32_t*>(pb + k * MMA_LDB + n) =
+        __byte_perm(t0, t1, 0x5410);
+    *reinterpret_cast<uint32_t*>(pb + MMA_BK * MMA_LDB + k * MMA_LDB + n) =
+        __byte_perm(t0, t1, 0x7632) ^ 0x80008000u;
+  }
+}
+
+// The products of one decoded stage into the warp's accumulators: per k16
+// step, the val planes' MMAs and then (sub_rem) the rem planes' into the
+// same accumulators
+template <int TM>
+__device__ __forceinline__ void mma_stage(
+    const __half* __restrict__ pa, const __half* __restrict__ pb,
+    float (&acc)[MmaShape<TM>::MI][MmaShape<TM>::NI][4], int wm, int wn,
+    int lane, int sub_rem) {
+  using S = MmaShape<TM>;
+  const int planes = sub_rem ? 2 : 1;
+#pragma unroll
+  for (int kk = 0; kk < MMA_BK; kk += 16) {
+    for (int pl = 0; pl < planes; ++pl) {
+      const __half* a = pa + pl * TM * MMA_LDA;
+      const __half* b = pb + pl * MMA_BK * MMA_LDB;
+      uint32_t af[S::MI][4], bf[S::NI / 2][4];
+#pragma unroll
+      for (int i = 0; i < S::MI; ++i)
+        ldmatrix_x4(af[i], a + (wm * (TM / 2) + i * 16 + (lane & 15)) *
+                                   MMA_LDA + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < S::NI / 2; ++j)
+        ldmatrix_x4_trans(bf[j], b + (kk + (lane & 15)) * MMA_LDB +
+                                     wn * 32 + j * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int i = 0; i < S::MI; ++i)
+#pragma unroll
+        for (int j = 0; j < S::NI; ++j)
+          mma16816(acc[i][j], af[i], bf[j / 2][(j % 2) * 2],
+                   bf[j / 2][(j % 2) * 2 + 1]);
+    }
+  }
+}
+
+// C (or split z's [M, N] partial) = sum over K rows [z*ks, min(K, z*ks+ks))
+// of va*vb - ra*rb.  Per stage: the copy of stage s+2 is issued, stage s+1
+// is decoded while stage s is multiplied (two decoded buffers), one
+// barrier per stage.
+template <int TM, int FMT, bool VEC>
+__global__ void __launch_bounds__(MMA_THREADS, MMA_BPS)
+logmac_mma_kernel(const uint32_t* __restrict__ A,
+                  const uint32_t* __restrict__ B, float* __restrict__ C,
+                  float* __restrict__ part, const float2* __restrict__ tab16,
+                  int M, int N, int K, int ks, euler::Posit pc,
+                  euler::Planes pl, int sub_rem) {
+  using S = MmaShape<TM>;
+  extern __shared__ float4 smem4[];
+  uint32_t* raw = reinterpret_cast<uint32_t*>(smem4);
+  __half* planes =
+      reinterpret_cast<__half*>(raw + MMA_STAGES * (S::RAW_A + S::RAW_B));
+  uint32_t* tab = reinterpret_cast<uint32_t*>(planes + 2 * (S::PL_A + S::PL_B));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / 4, wn = warp % 4;
+  const int n0 = blockIdx.x * MMA_BN, m0 = blockIdx.y * TM;
+  const int kbeg = blockIdx.z * ks, kend = min(K, kbeg + ks);
+  const int nk = (kend - kbeg + MMA_BK - 1) / MMA_BK;
+
+  auto raw_a = [&](int s) { return raw + (s % MMA_STAGES) * (S::RAW_A + S::RAW_B); };
+  auto raw_b = [&](int s) { return raw_a(s) + S::RAW_A; };
+  auto pl_a = [&](int s) { return planes + (s & 1) * (S::PL_A + S::PL_B); };
+  auto pl_b = [&](int s) { return pl_a(s) + S::PL_A; };
+
+#pragma unroll
+  for (int s = 0; s < MMA_STAGES - 1; ++s) {
+    if (s < nk)
+      load_stage<TM, VEC>(raw_a(s), raw_b(s), A, B, M, N, K, m0, n0,
+                          kbeg + s * MMA_BK, kend, tid);
+    cp_async_commit();
+  }
+  if constexpr (FMT == FMT_TABLE8) {
+    float v, r;
+    euler::decode_planes((uint32_t)tid, pc, pl, &v, &r);
+    __half2 h = __floats2half2_rn(v, r);
+    tab[tid] = *reinterpret_cast<uint32_t*>(&h);
+  } else {
+    for (int i = tid; i < TABLE16; i += MMA_THREADS) {
+      __half2 h = __float22half2_rn(tab16[i]);
+      tab[i] = *reinterpret_cast<uint32_t*>(&h);
+    }
+  }
+  float acc[S::MI][S::NI][4];
+#pragma unroll
+  for (int i = 0; i < S::MI; ++i)
+#pragma unroll
+    for (int j = 0; j < S::NI; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0f;
+
+  cp_async_wait<MMA_STAGES - 2>();
+  __syncthreads();  // stage 0 and the table are in shared memory
+  if (nk > 0) decode_stage<TM, FMT>(raw_a(0), raw_b(0), pl_a(0), pl_b(0), tab, tid);
+  for (int s = 0; s < nk; ++s) {
+    const int nxt = s + MMA_STAGES - 1;
+    if (nxt < nk)
+      load_stage<TM, VEC>(raw_a(nxt), raw_b(nxt), A, B, M, N, K, m0, n0,
+                          kbeg + nxt * MMA_BK, kend, tid);
+    cp_async_commit();
+    cp_async_wait<MMA_STAGES - 2>();
+    // stage s+1's words are in; every warp is past stage s-1's products
+    // and stage s's decode
+    __syncthreads();
+    if (s + 1 < nk)
+      decode_stage<TM, FMT>(raw_a(s + 1), raw_b(s + 1), pl_a(s + 1),
+                            pl_b(s + 1), tab, tid);
+    mma_stage<TM>(pl_a(s), pl_b(s), acc, wm, wn, lane, sub_rem);
+  }
+
+  float* out = gridDim.z == 1 ? C : part + (size_t)blockIdx.z * M * N;
+#pragma unroll
+  for (int i = 0; i < S::MI; ++i)
+#pragma unroll
+    for (int j = 0; j < S::NI; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int gm = m0 + wm * (TM / 2) + i * 16 + (lane >> 2) + (c >> 1) * 8;
+        const int gn = n0 + wn * 32 + j * 8 + (lane & 3) * 2 + (c & 1);
+        if (gm < M && gn < N) out[(size_t)gm * N + gn] = acc[i][j][c];
+      }
+}
+
+// C = sum_s part[s] over the [S, M, N] partials, in split order
+__global__ void logmac_mma_reduce(const float* __restrict__ part,
+                                  float* __restrict__ C, long long mn,
+                                  int S) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= mn) return;
+  float s = 0.0f;
+  for (int z = 0; z < S; ++z) s += part[z * mn + i];
+  C[i] = s;
+}
+
+template <int TM, int FMT, bool VEC>
+static int launch_mma(const uint32_t* A, const uint32_t* B, float* C,
+                      float* part, const float2* tab16, int M, int N, int K,
+                      int ks, int S, euler::Posit pc, euler::Planes pl,
+                      int sub_rem, cudaStream_t st) {
+  auto kern = logmac_mma_kernel<TM, FMT, VEC>;
+  const int bytes = MmaShape<TM>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + MMA_BN - 1) / MMA_BN, (M + TM - 1) / TM, S);
+  kern<<<grid, MMA_THREADS, bytes, st>>>(A, B, C, part, tab16, M, N, K, ks,
+                                         pc, pl, sub_rem);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || S == 1) return (int)err;
+  const long long mn = (long long)M * N;
+  logmac_mma_reduce<<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(part, C,
+                                                                   mn, S);
+  return (int)cudaGetLastError();
+}
+
+template <int TM, int FMT>
+static int launch_mma_vec(bool vec, const uint32_t* A, const uint32_t* B,
+                          float* C, float* part, const float2* tab16, int M,
+                          int N, int K, int ks, int S, euler::Posit pc,
+                          euler::Planes pl, int sub_rem, cudaStream_t st) {
+  if (vec)
+    return launch_mma<TM, FMT, true>(A, B, C, part, tab16, M, N, K, ks, S,
+                                     pc, pl, sub_rem, st);
+  return launch_mma<TM, FMT, false>(A, B, C, part, tab16, M, N, K, ks, S, pc,
+                                    pl, sub_rem, st);
+}
+
 extern "C" int logmac_launch(const uint32_t* A, const uint32_t* B, float* C,
                              int M, int N, int K, int pn, int pes, int pR,
                              int stages, int m_eff, int sub_rem,
@@ -437,4 +783,40 @@ extern "C" int logmac_small_launch(const uint32_t* A, const uint32_t* B,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The tensor-core kernel (kernels/logmac.py: mma_key admits the format):
+// bm = 64 or 128 rows per block; ks, S as logmac_small_launch (part holds
+// S*M*N floats when S > 1); vec: A's and B's bases 16-byte aligned and K,
+// N multiples of 4; tab16: the format's logmac_table16 table for a 16-bit
+// format, null for an 8-bit one (its table is built per block)
+extern "C" int logmac_mma_launch(const uint32_t* A, const uint32_t* B,
+                                 float* C, float* part, const float2* tab16,
+                                 int M, int N, int K, int ks, int S, int bm,
+                                 int vec, int pn, int pes, int pR,
+                                 int stages, int m_eff, int sub_rem,
+                                 void* stream) {
+  if (M <= 0 || N <= 0) return 0;
+  euler::Posit pc{pn, pes, pR};
+  euler::Planes pl{stages, m_eff};
+  if ((pn == 16) != (tab16 != nullptr) || (pn != 8 && pn != 16) || S < 1 ||
+      (S > 1 && (part == nullptr || ks % MMA_BK != 0)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool v = vec != 0;
+  if (bm == 64) {
+    if (pn == 8)
+      return launch_mma_vec<64, FMT_TABLE8>(v, A, B, C, part, tab16, M, N, K,
+                                            ks, S, pc, pl, sub_rem, st);
+    return launch_mma_vec<64, FMT_TABLE16>(v, A, B, C, part, tab16, M, N, K,
+                                           ks, S, pc, pl, sub_rem, st);
+  }
+  if (bm == 128) {
+    if (pn == 8)
+      return launch_mma_vec<128, FMT_TABLE8>(v, A, B, C, part, tab16, M, N,
+                                             K, ks, S, pc, pl, sub_rem, st);
+    return launch_mma_vec<128, FMT_TABLE16>(v, A, B, C, part, tab16, M, N, K,
+                                            ks, S, pc, pl, sub_rem, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -7,8 +7,10 @@ as two exponent-field factors.  ``logmac`` multiplies ``(M,K)`` by
 ``(K,N)`` pattern matrices into the f32 ``(M,N)`` "quire" value
 ``sum va*vb - sum ra*rb``: the plain version for CPU tensors, the
 ``csrc/logmac.cu`` kernels for CUDA tensors, chosen by :func:`_plan` from
-the shape alone: the split-K small-M kernel for ``M <= SMALL_M_MAX`` (every
-launch of the serving path), the 64x64 tile kernel above it.
+the shape and the format alone: the split-K small-M kernel for
+``M <= SMALL_M_MAX`` (decode steps and short prefills); above it the
+split-K tensor-core kernel where :func:`mma_key` finds every plane value
+exact in fp16 (P8 and P16 L-21b), else the 64x64 f32 tile kernel (P32).
 
 As in the TPU kernel (``repro/kernels/logmac.py:144``), the rem dot is
 subtracted only when ``stages > 0`` and the mode is ``euler``.
@@ -126,29 +128,60 @@ KS_MIN = 64               # and at least this many
 SCRATCH_MAX_FLOATS = 2 * SMALL_M_MAX * TARGET_BLOCKS * SMALL_BN
 
 
+# The tensor-core kernel's geometry (csrc/logmac.cu: MMA_BN, MMA_BK,
+# MMA_BPS, MmaShape): 128 columns and 64 or 128 rows a block, K in stages
+# of 16.  Two blocks fit on an SM (105 KB of shared memory each at 128
+# rows), so its split-K grids aim at one wave of MMA_TARGET_BLOCKS
+MMA_BN = 128
+MMA_BK = 16
+MMA_TARGET_BLOCKS = 2 * N_SMS
+MMA_KS_MIN = 128          # K rows per split at least (8 stages)
+# S * tiles <= MMA_TARGET_BLOCKS wherever S > 1 and a tile holds at most
+# 128 x 128 outputs, so the [S, M, N] partials never exceed this
+MMA_SCRATCH_MAX_FLOATS = MMA_TARGET_BLOCKS * 128 * MMA_BN
+
+
 class LogmacPlan(NamedTuple):
-    kind: str      # "small" (split-K, M <= SMALL_M_MAX) or "tile"
+    kind: str      # "small" (split-K, M <= SMALL_M_MAX), "mma" or "tile"
     bn: int        # output columns per block
-    splits: int    # K-splits S (grid = column tiles x S)
+    splits: int    # K-splits S (grid = column tiles x row tiles x S)
     ks: int        # K rows per split (the last split may be shorter)
-    mr: int        # rows the small kernel is built for (>= M)
+    mr: int        # rows per block: the small kernel's bound (>= M) or the
+                   # mma kernel's block rows (64 or 128)
     cpt: int       # consecutive columns per thread (words per vector load)
 
-    def blocks(self, N: int) -> int:
-        return -(-N // self.bn) * self.splits
+    def row_tiles(self, M: int) -> int:
+        return -(-M // self.mr) if self.kind == "mma" else 1
+
+    def blocks(self, N: int, M: int = 1) -> int:
+        return -(-N // self.bn) * self.row_tiles(M) * self.splits
 
     def scratch_floats(self, M: int, N: int) -> int:
-        """Floats of the [S, 2, M, N] partial sums (0 when S == 1)."""
-        return 2 * self.splits * M * N if self.splits > 1 else 0
+        """Floats of the partial sums: [S, 2, M, N] for the small kernel,
+        [S, M, N] for the mma kernel (0 when S == 1)."""
+        if self.splits == 1:
+            return 0
+        return (1 if self.kind == "mma" else 2) * self.splits * M * N
 
 
-def _plan(M: int, N: int, K: int) -> LogmacPlan:
-    """Which logmac kernel runs an (M,K) x (K,N) product, and its grid.
+def _plan(M: int, N: int, K: int, mma: bool = False) -> LogmacPlan:
+    """Which logmac kernel runs an (M,K) x (K,N) product, and its grid;
+    ``mma``: the format's planes are exact in fp16 (:func:`mma_key`).
 
     Small M: the column tiles alone rarely fill the card (18 blocks at
     N=2304), so K is split into as many splits as keep the grid within
     TARGET_BLOCKS, each at least KS_MIN rows.  The head (2000 tiles) runs
-    unsplit."""
+    unsplit.  Above SMALL_M_MAX the mma kernel splits K the same way into
+    a grid of at most MMA_TARGET_BLOCKS blocks (hymba's k, v at M = 256 has
+    6 output tiles), each split at least MMA_KS_MIN rows."""
+    if M > SMALL_M_MAX and mma:
+        bm = 64 if M <= 64 else 128
+        tiles = -(-N // MMA_BN) * -(-M // bm)
+        want = MMA_TARGET_BLOCKS // tiles
+        if want <= 1 or K < 2 * MMA_KS_MIN:
+            return LogmacPlan("mma", MMA_BN, 1, K, bm, 4)
+        ks = max(MMA_KS_MIN, -(-K // (want * MMA_BK)) * MMA_BK)
+        return LogmacPlan("mma", MMA_BN, -(-K // ks), ks, bm, 4)
     if M > SMALL_M_MAX:
         return LogmacPlan("tile", 64, 1, K, 64, 4)
     mr = next(r for r in (4, 8, 16, 32) if M <= r)
@@ -175,6 +208,28 @@ def table16_key(pc: P.PositConfig, ecfg: EulerConfig):
     if pc.n_bits != 16 or R == 0 or m is None or R + pc.es + m > 12:
         return None
     return (pc.es, R, ecfg.stages, m)
+
+
+def mma_key(pc: P.PositConfig, ecfg: EulerConfig) -> bool:
+    """Whether every (val, rem) plane value of the format is exact in fp16,
+    so the tensor-core kernel (csrc/logmac.cu: logmac_mma_kernel) computes
+    the same products as the f32 kernels: the one place that decides.
+
+    A nonzero val plane is ``±2^(scale - m) * j`` with ``j < 2^(m + 1)``
+    (m kept fraction bits) and ``scale`` in [min_scale, max_scale]; the rem
+    plane keeps a subset of the same bits.  Both are exact in fp16 when the
+    significand fits its 11 bits (m <= 10), the leading bit its largest
+    exponent (max_scale <= 15) and the lowest bit its subnormal step
+    (min_scale - m >= -24).  P8 L-21b: m 4, scales [-2, 1]; P16 L-21b: m 8,
+    scales [-6, 5]; P32 L-21b (m 16) is refused.  The kernel decodes 8-bit
+    words through a 256-entry table and 16-bit words through
+    :func:`table16_key`'s, so a 16-bit format needs that table too."""
+    if pc.n_bits not in (8, 16) or (pc.n_bits == 16
+                                    and table16_key(pc, ecfg) is None):
+        return False
+    m = effective_trunc(ecfg.trunc, ecfg.sublane)
+    m = pc.frac_window if m is None else min(m, pc.frac_window)
+    return m <= 10 and pc.max_scale <= 15 and pc.min_scale - m >= -24
 
 
 _TABLES16: dict[tuple, torch.Tensor] = {}
@@ -205,6 +260,30 @@ def _format_args(ecfg: EulerConfig) -> tuple:
     m = effective_trunc(ecfg.trunc, ecfg.sublane)
     return (pc.n_bits, pc.es, pc.regime_max or 0, ecfg.stages,
             -1 if m is None else m, int(subtracts_rem(ecfg)))
+
+
+def _launch_mma(a_pat, b_pat, out, plan: LogmacPlan,
+                ecfg: EulerConfig) -> None:
+    """The tensor-core kernel, and its split-K reduce when
+    ``plan.splits > 1``, on checked CUDA operands, writing ``out``."""
+    Mr, K = a_pat.shape
+    Nc = b_pat.shape[1]
+    nscr = plan.scratch_floats(Mr, Nc)
+    part = (torch.empty(nscr, dtype=torch.float32, device=a_pat.device)
+            if nscr else None)
+    # 16-byte copies need 4-word aligned rows and bases
+    vec = (K % 4 == 0 and Nc % 4 == 0 and a_pat.data_ptr() % 16 == 0
+           and b_pat.data_ptr() % 16 == 0)
+    tab = (_table16(a_pat.device, table16_key(ecfg.posit, ecfg))
+           if ecfg.posit.n_bits == 16 else None)
+    fn = _build.function("logmac", "logmac_mma_launch",
+                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
+                         + [ctypes.c_void_p])
+    _build.check(fn(a_pat.data_ptr(), b_pat.data_ptr(), out.data_ptr(),
+                    part.data_ptr() if part is not None else None,
+                    tab.data_ptr() if tab is not None else None, Mr, Nc, K,
+                    plan.ks, plan.splits, plan.mr, int(vec),
+                    *_format_args(ecfg), _build.stream_ptr(a_pat)), "logmac")
 
 
 def _launch_small(a_pat, b_pat, out, plan: LogmacPlan,
@@ -250,8 +329,10 @@ def logmac(a_pat: torch.Tensor, b_pat: torch.Tensor,
     if ecfg.mode != "euler":
         raise ValueError(f"logmac kernel runs euler mode, got {ecfg.mode}")
     out = torch.empty((Mr, Nc), dtype=torch.float32, device=a_pat.device)
-    plan = _plan(Mr, Nc, K)
-    if plan.kind == "tile":
+    plan = _plan(Mr, Nc, K, mma_key(ecfg.posit, ecfg))
+    if plan.kind == "mma":
+        _launch_mma(a_pat, b_pat, out, plan, ecfg)
+    elif plan.kind == "tile":
         fn = _build.function("logmac", "logmac_launch",
                              [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
                              + [ctypes.c_void_p])
@@ -261,4 +342,11 @@ def logmac(a_pat: torch.Tensor, b_pat: torch.Tensor,
     else:
         _launch_small(a_pat, b_pat, out, plan, ecfg)
     _build.count_launch("logmac", ecfg.posit.n_bits)
+    _build.count_launch(KERNEL_OF[plan.kind], ecfg.posit.n_bits)
     return out
+
+
+# The launch counter of each kind's kernel (``_build.LAUNCHES``; "logmac"
+# counts every launch of the wrapper)
+KERNEL_OF = {"small": "logmac_small", "mma": "logmac_mma",
+             "tile": "logmac_tile"}

@@ -32,6 +32,7 @@ import ctypes
 import torch
 
 from repro_torch.core import posit as _P
+from repro_torch.core import xla_f32 as _X
 from repro_torch.core.engine import EulerConfig, _pow2_scale
 from repro_torch.core.engine import dot_general as _dot_general
 from repro_torch.core.logmult import effective_trunc
@@ -88,7 +89,7 @@ def paged_attention_reference(q, k_pages, v_pages, page_table, pos, *,
     s = s * (hd ** -0.5)
     s = s.to(torch.float32)
     if softcap:
-        s = softcap * torch.tanh(s / softcap)
+        s = softcap * _X.tanh(s / softcap)
 
     pos_b = pos.to(torch.int32)
     s_pos = torch.arange(S, device=q.device)
@@ -99,7 +100,7 @@ def paged_attention_reference(q, k_pages, v_pages, page_table, pos, *,
             valid &= s_pos[None, :] > pos_b[:, None] - w
     s = torch.where(valid[:, None, None, None, :], s,
                     torch.tensor(-1e30, dtype=s.dtype, device=s.device))
-    probs = torch.softmax(s, dim=-1).to(vd.dtype)
+    probs = _X.softmax(s, dim=-1).to(vd.dtype)
     dn_pv = (((4,), (1,)), ((0, 1), (0, 2)))
     o = dot_fn(probs, vd, dn_pv, "pv")           # [B, KV, T, group, hd]
     return o.movedim(1, 2).reshape(B, T, KV * group * hd)

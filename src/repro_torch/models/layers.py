@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch import numerics as N
 from repro_torch.core import posit as _P
+from repro_torch.core import xla_f32 as _X
 from repro_torch.core.engine import EulerConfig
 from repro_torch.numerics import NumericsContext
 
@@ -103,8 +104,9 @@ def rmsnorm_init(d: int, device):
 
 def rmsnorm_apply(p, x, eps: float = 1e-6):
     x32 = x.to(torch.float32)
-    var = torch.mean(x32 * x32, -1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps) * p["g"]).to(x.dtype)
+    # the elementwise functions (_X) round as XLA:CPU's on CPU tensors
+    var = _X.mean_last(x32 * x32)
+    return (x32 * _X.rsqrt(var + eps) * p["g"]).to(x.dtype)
 
 
 def embed_init(gen, vocab_p: int, d: int, device):
@@ -135,7 +137,7 @@ def rope(x, positions, theta: float):
 
 
 def _softcap(x, cap):
-    return cap * torch.tanh(x / cap) if cap else x
+    return cap * _X.tanh(x / cap) if cap else x
 
 
 # --------------------------------------------------------------------------
@@ -267,7 +269,7 @@ def attention_apply(p, x, ctx: Ctx, cfg, window, positions,
         valid = valid & window_ok(pos_b[:, None], s_pos[None, :], window)
         scores = torch.where(valid[:, None, None, None, :], scores,
                              torch.tensor(_NEG, device=x.device))
-        probs = torch.softmax(scores, dim=-1).to(vd.dtype)
+        probs = _X.softmax(scores, dim=-1).to(vd.dtype)
         out = _attn_values(probs, vd, ctx)
         y = dense_apply(p["wo"], out.to(x.dtype), ctx)
         return y, cache
@@ -302,8 +304,8 @@ def attention_apply(p, x, ctx: Ctx, cfg, window, positions,
             mask = causal_window_mask(t_idx, s_idx, window)
             s = torch.where(mask[None, None, :, None, :], s, neg)
             m_new = torch.maximum(m_run, s.amax(-1))
-            alpha = torch.exp(m_run - m_new)
-            pexp = torch.exp(s - m_new[..., None])
+            alpha = _X.exp(m_run - m_new)
+            pexp = _X.exp(s - m_new[..., None])
             l_run = l_run * alpha + pexp.sum(-1)
             dn = (((4,), (1,)), ((0, 1), (0, 2)))
             o = N.dot_general(pexp.to(v_i.dtype), v_i, dn, ctx.numerics,
@@ -358,14 +360,14 @@ def mlp_init(gen, cfg, device, d_ff=None):
 def mlp_apply(p, x, ctx: Ctx, kind: str):
     h = dense_apply(p["wi"], x, ctx)
     if kind == "silu_gated":
-        h = F.silu(dense_apply(p["wg"], x, ctx)) * h
+        h = _X.silu(dense_apply(p["wg"], x, ctx)) * h
     elif kind == "gelu_gated":
-        h = F.gelu(dense_apply(p["wg"], x, ctx), approximate="tanh") * h
+        h = _X.gelu_tanh(dense_apply(p["wg"], x, ctx)) * h
     elif kind == "relu2":  # squared ReLU (nemotron)
         r = F.relu(h)
         h = r * r
     elif kind == "gelu":
-        h = F.gelu(h, approximate="tanh")
+        h = _X.gelu_tanh(h)
     else:
         raise ValueError(kind)
     return dense_apply(p["wo"], h, ctx)

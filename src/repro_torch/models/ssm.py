@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch import numerics as NU  # 'N' is the SSM state dim locally
 from repro_torch.core import posit as _P
+from repro_torch.core import xla_f32 as _X
 
 from .layers import Ctx, cache_reset, dense_apply, dense_init
 
@@ -57,9 +58,9 @@ def ssm_init(gen, cfg, device):
 
 
 def _gated_rmsnorm(y, z, g, eps=1e-6):
-    y = y * F.silu(z.to(torch.float32))
-    var = torch.mean(y * y, -1, keepdim=True)
-    return y * torch.rsqrt(var + eps) * g
+    y = y * _X.silu(z.to(torch.float32))
+    var = _X.mean_last(y * y)
+    return y * _X.rsqrt(var + eps) * g
 
 
 def _causal_conv(u, w, b):
@@ -100,6 +101,16 @@ def _split_proj(zxbcdt, cfg):
     xBC = zxbcdt[..., di:2 * di + 2 * N]
     dt = zxbcdt[..., 2 * di + 2 * N:]
     return z, xBC, dt
+
+
+def cumsum(x, dim: int):
+    """The SSD's inclusive prefix sum: on CPU tensors ``jnp.cumsum``'s order
+    on XLA:CPU (``core/xla_f32.py``), which the hybrid's whole-model L-21b
+    gradients need to follow ``jax.grad``'s (ROADMAP queue 3); on the card
+    :func:`log_step_scan`."""
+    if x.device.type == "cpu":
+        return _X.prefix_sum(x, dim)
+    return log_step_scan(x, dim)
 
 
 def log_step_scan(x, dim: int):
@@ -143,14 +154,14 @@ def ssd_chunked(x, dt, A, Bm, Cm, ctx: Ctx, chunk: int, initial_state=None):
         sl = slice(c * Q, (c + 1) * Q)
         xq, dtq, Bq, Cq = x[:, sl], dt[:, sl], Bm[:, sl], Cm[:, sl]
         dA = dtq * A                                           # [B, Q, H]
-        cum = log_step_scan(dA, 1)
+        cum = cumsum(dA, 1)
         # intra-chunk dual form: scores[i,j] = C_i · B_j (EULER-quantized)
         dn = (((2,), (2,)), ((0,), (0,)))
         scores = NU.dot_general(Cq, Bq, dn, ctx.numerics, op="qk")
         # mask the log-decay BEFORE exp (the reference's where-grad guard)
         ldiff = cum[:, :, None, :] - cum[:, None, :, :]        # [B,Qi,Qj,H]
         ldiff = torch.where(causal[None, :, :, None], ldiff, neg)
-        M = scores[..., None] * torch.exp(ldiff)               # [B,Qi,Qj,H]
+        M = scores[..., None] * _X.exp(ldiff)                  # [B,Qi,Qj,H]
         xdt = xq * dtq[..., None]                              # [B,Q,H,P]
         # y_intra[i,h,p] = sum_j M[i,j,h] xdt[j,h,p]
         dn2 = (((3,), (1,)), ((0, 1), (0, 2)))  # [B,H,Qi,Qj] x [B,Qj,H,P]
@@ -159,13 +170,13 @@ def ssd_chunked(x, dt, A, Bm, Cm, ctx: Ctx, chunk: int, initial_state=None):
         # inter-chunk: y_inter[i] = exp(cum_i) * (C_i · S_in)
         dn3 = (((2,), (1,)), ((0,), (0,)))  # Cq [B,Q,N] x S_in [B,N,H,P]
         y_inter = NU.dot_general(Cq, S.movedim(1, 2), dn3, ctx.numerics)
-        y_inter = y_inter * torch.exp(cum)[..., None]
+        y_inter = y_inter * _X.exp(cum)[..., None]
         # state update: S_out = decay * S_in + sum_j B_j ⊗ (w_j x_j)
-        decay_out = torch.exp(cum[:, -1:, :] - cum)            # [B,Q,H]
+        decay_out = _X.exp(cum[:, -1:, :] - cum)               # [B,Q,H]
         w = xdt * decay_out[..., None]                         # [B,Q,H,P]
         dn4 = (((1,), (1,)), ((0,), (0,)))  # contract Q
         S_chunk = NU.dot_general(Bq, w, dn4, ctx.numerics).movedim(1, 2)
-        chunk_decay = torch.exp(cum[:, -1, :])                 # [B,H]
+        chunk_decay = _X.exp(cum[:, -1, :])                    # [B,H]
         S = S * chunk_decay[:, :, None, None] + S_chunk
         ys.append(y_intra + y_inter)
     return torch.cat(ys, 1), S
@@ -184,8 +195,8 @@ def ssm_apply(p, x, ctx: Ctx, cfg, cache=None):
 
     zxbcdt = dense_apply(p["in_proj"], x, ctx)  # [B, T, 2di+2N+H]
     z, xBC, dt_raw = _split_proj(zxbcdt, cfg)
-    A = -torch.exp(p["A_log"])  # [H]
-    dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"])  # [B,T,H]
+    A = -_X.exp(p["A_log"])  # [H]
+    dt = _X.softplus(dt_raw.to(torch.float32) + p["dt_bias"])  # [B,T,H]
 
     if cache is not None and T == 1:
         # ---- O(1) decode ----
@@ -193,12 +204,12 @@ def ssm_apply(p, x, ctx: Ctx, cfg, cache=None):
         window = torch.cat([conv_buf, conv_to_cache(xBC, conv_buf.dtype)], 1)
         conv_out = torch.einsum("bkc,kc->bc", conv_from_cache(window),
                                 p["conv_w"]) + p["conv_b"]
-        conv_out = F.silu(conv_out)[:, None, :]  # [B,1,cd]
+        conv_out = _X.silu(conv_out)[:, None, :]  # [B,1,cd]
         xin = conv_out[..., :di].reshape(Bsz, 1, H, P)
         Bm = conv_out[..., di:di + N]
         Cm = conv_out[..., di + N:]
         S = cache["state"]  # [B, H, N, P]
-        dA = torch.exp(dt[:, 0, :] * A)  # [B,H]
+        dA = _X.exp(dt[:, 0, :] * A)  # [B,H]
         dBx = (dt[:, 0, :, None, None] * Bm[:, 0, None, :, None]
                * xin[:, 0, :, None, :])
         S_new = S * dA[:, :, None, None] + dBx
@@ -211,7 +222,7 @@ def ssm_apply(p, x, ctx: Ctx, cfg, cache=None):
         return out, cache
 
     # ---- chunked forward / prefill ----
-    conv_out = F.silu(_causal_conv(xBC, p["conv_w"], p["conv_b"]))
+    conv_out = _X.silu(_causal_conv(xBC, p["conv_w"], p["conv_b"]))
     xin = conv_out[..., :di].reshape(Bsz, T, H, P)
     Bm = conv_out[..., di:di + N]
     Cm = conv_out[..., di + N:]

@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import numerics as N
 from repro_torch.core import posit as _P
+from repro_torch.core import xla_f32 as _X
 from repro_torch.core.engine import EulerConfig
 from repro_torch.numerics import NumericsContext
 
@@ -241,7 +242,7 @@ class Model:
             logits = N.dot_general(h, emb, dn, ctx.numerics,
                                    op="matmul").to(torch.float32)
         if cfg.logit_softcap:
-            logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+            logits = cfg.logit_softcap * _X.tanh(logits / cfg.logit_softcap)
         if cfg.vocab_padded > cfg.vocab:  # mask padded vocab slots
             pad = torch.arange(cfg.vocab_padded, device=h.device) >= cfg.vocab
             logits = torch.where(pad, torch.tensor(-1e30, device=h.device),
@@ -250,7 +251,7 @@ class Model:
 
     def _chunk_loss(self, params, h_c, y_c, ctx: Ctx):
         logits = self.head(params, h_c, ctx)                    # [B,tc,Vp]
-        logz = torch.logsumexp(logits, -1)
+        logz = _X.logsumexp(logits, -1)
         ll = torch.gather(logits, -1, y_c[..., None].to(torch.long))[..., 0]
         return torch.sum(logz - ll)
 

@@ -66,12 +66,18 @@ def test_logmac_plan_fills_the_card(M, kn):
 @pytest.mark.parametrize("M", list(range(1, 40)) + [64, 128, 512])
 def test_logmac_plan_crossover(M):
     """M <= SMALL_M_MAX takes the small kernel built for the least of 4, 8,
-    16, 32 rows that holds M, with at most 64 accumulators a thread; above
-    it, the tile kernel."""
+    16, 32 rows that holds M, with at most 64 accumulators a thread,
+    whatever the format; above it, the tensor-core kernel where the
+    format's planes are exact in fp16 (64-row blocks up to M = 64), else
+    the tile kernel."""
     plan = TLM._plan(M, 9216, 2304)
     if M > TLM.SMALL_M_MAX:
         assert plan.kind == "tile" and plan.splits == 1
+        mma = TLM._plan(M, 9216, 2304, mma=True)
+        assert mma.kind == "mma" and mma.bn == TLM.MMA_BN
+        assert mma.mr == (64 if M <= 64 else 128)
         return
+    assert TLM._plan(M, 9216, 2304, mma=True) == plan
     assert plan.kind == "small" and plan.bn == TLM.SMALL_BN
     assert plan.mr == min(r for r in (4, 8, 16, 32) if r >= M)
     assert 2 * plan.mr * plan.cpt <= 64
@@ -97,11 +103,20 @@ def test_logmac_plan_scratch_within_its_bound(M):
 
 def test_logmac_plan_matches_kernel_source():
     """The plan's geometry is the kernel's: columns per block, threads, and
-    the columns a thread owns at each row bound."""
+    the columns a thread owns at each row bound; for the tensor-core
+    kernel its columns and K rows per block, the blocks an SM holds (the
+    plan's wave) and the row tilings the launch accepts."""
     src = CSRC.read_text()
     assert re.search(rf"constexpr int SM_BN = {TLM.SMALL_BN};", src)
     assert re.search(r"constexpr int SM_THREADS = 256;", src)
     assert "CPT = MR <= 8 ? 4 : (MR == 16 ? 2 : 1)" in src
+    assert re.search(rf"constexpr int MMA_BN = {TLM.MMA_BN};", src)
+    assert re.search(rf"constexpr int MMA_BK = {TLM.MMA_BK};", src)
+    bps = int(re.search(r"constexpr int MMA_BPS = (\d+);", src).group(1))
+    assert TLM.MMA_TARGET_BLOCKS == bps * TLM.N_SMS
+    assert "__launch_bounds__(MMA_THREADS, MMA_BPS)" in src
+    assert "if (bm == 64)" in src and "if (bm == 128)" in src
+    assert TLM.MMA_KS_MIN % TLM.MMA_BK == 0
     for M in (4, 8, 16, 32):
         plan = TLM._plan(M, 9216, 2304)
         assert plan.cpt == (4 if M <= 8 else 2 if M == 16 else 1)
@@ -316,7 +331,8 @@ def check_redesigned_kernels_on_card(dev: torch.device) -> None:
     """The redesigned kernels against their plain versions on a CUDA card:
     the served format's decode table bit for bit, logmac over every word
     pattern, the small-M logmac at every row bound and across the
-    crossover with ragged, split and misaligned operands, and the
+    crossover, the tensor-core logmac (M > 32 at P8 and P16) at both row
+    tilings, with ragged, split and misaligned operands, and the
     page-parallel paged decode with page chunks, each giving the same bits
     on two launches, then the fused pre-scale + encode kernel
     (``check_encode_prescaled_on_card``).  Shared by the card test below
@@ -340,14 +356,14 @@ def check_redesigned_kernels_on_card(dev: torch.device) -> None:
              if width < 32 else torch.randint(
                  -(1 << 31), (1 << 31) - 1, (1 << 20,), generator=g,
                  dtype=torch.int32, device=dev))[None, :]
-        for M in (1, 4):
+        for M in (1, 4, 64):
             a = TPC.posit_encode(torch.randn(M, 1, generator=g, device=dev),
                                  tc.posit)
             assert bool((TLM.logmac(a, b, tc)
                          == TLM.logmac_plain(a, b, tc)).all())
     for width in (8, 16, 32):
         tc = from_variant(width, "L-21b")
-        for M in (1, 4, 5, 8, 16, 17, 32, 33):
+        for M in (1, 4, 5, 8, 16, 17, 32, 33, 64, 65, 128):
             for K, N in ((300, 70), (1000, 256), (2301, 1155)):
                 a = TPC.posit_encode(
                     torch.randn(M, K, generator=g, device=dev), tc.posit)
@@ -367,9 +383,10 @@ def check_redesigned_kernels_on_card(dev: torch.device) -> None:
                                             device=dev), tc.posit)
         b = flat[1:].view(1000, 256)
         assert b.data_ptr() % 16
-        a = TPC.posit_encode(torch.randn(16, 1000, generator=g, device=dev),
-                             tc.posit)
-        assert _within_logmac_bound(TLM.logmac(a, b, tc), a, b, tc)
+        for M in (16, 128):
+            a = TPC.posit_encode(torch.randn(M, 1000, generator=g,
+                                             device=dev), tc.posit)
+            assert _within_logmac_bound(TLM.logmac(a, b, tc), a, b, tc)
     ecfg = from_variant(16, "L-21b")
     B, KV, G, hd, ps = 3, 2, 2, 32, 8
     for nlp, pos in ((4, [19, -1, 30]), (130, [1000, 3, 1039])):

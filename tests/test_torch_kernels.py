@@ -291,7 +291,8 @@ def test_cuda_backend_on_cpu_runs_plain_versions():
     assert _build.LAUNCHES == {"posit_encode": 0,
                                "posit_encode_prescaled": 0,
                                "posit_decode": 0, "logmac": 0,
-                               "paged_flash_decode": 0}
+                               "logmac_small": 0, "logmac_mma": 0,
+                               "logmac_tile": 0, "paged_flash_decode": 0}
     assert all(not v for v in _build.WIDTH_LAUNCHES.values())
 
 
