@@ -3,8 +3,9 @@
 Counterpart of ``repro.core.engine``: ``EulerConfig`` (posit width/es,
 regime bound, ILM stages n, truncation m, SIMD mode, framework knobs) and
 ``euler_dot_general``, the drop-in for ``lax.dot_general`` with JAX's
-dimension-number convention.  Modes ported: ``exact``, ``posit``,
-``euler`` and ``quant_only``.
+dimension-number convention.  Modes: ``exact``, ``posit``, ``euler``,
+``quant_only`` and ``logfxp`` (the paper's Table VI log-fixed-point
+baseline).
 
 Gradients are straight-through: the forward sees the approximate value,
 ``x + (approx - x).detach()``; the rem plane carries no gradient.
@@ -35,7 +36,7 @@ class EulerConfig:
     bounded: bool = True             # B-Posit regime bound (R per _RBOUND)
     stages: int = 6                  # ILM stage count n
     trunc: int | None = 10           # truncation width m (None = no truncation)
-    mode: str = "euler"              # exact|posit|euler|quant_only
+    mode: str = "euler"              # exact|posit|euler|quant_only|logfxp
     simd: str = "scalar"             # scalar | 8_16 | 8_16_32
     out_quant: bool = False          # re-encode accumulator output to posit
     accum: str = "f32"               # f32 (kahan is not ported)
@@ -132,23 +133,71 @@ def _pow2_scale(x):
     return torch.clamp(s, min=1e-30).detach()
 
 
+# values per slice of an operand's plane construction: the plain codec's
+# int64 temporaries scale with the slice, not with the operand (one
+# llama4-scout expert weight is 671 M values)
+PLANE_CHUNK = 1 << 24
+
+
+def _by_leading_rows(fn, x):
+    """``fn(x)``, a pair of tensors (or None) shaped like ``x`` and
+    elementwise in it, computed over slices of ``x``'s leading dimension
+    of at most ``PLANE_CHUNK`` values (a single row may hold more) and
+    written into whole outputs.  The slices' values, and under autograd
+    their gradients, are those of one call on the whole tensor."""
+    if x.ndim == 0 or x.numel() <= PLANE_CHUNK:
+        return fn(x)
+    n0 = x.shape[0]
+    rows = max(1, PLANE_CHUNK // max(x.numel() // n0, 1))
+    if rows >= n0:
+        return fn(x)
+    outs = None
+    for r0 in range(0, n0, rows):
+        part = fn(x[r0:r0 + rows])
+        if outs is None:
+            outs = [None if p is None else
+                    torch.empty(x.shape, dtype=p.dtype, device=p.device)
+                    for p in part]
+        for o, p in zip(outs, part):
+            if o is not None:
+                o[r0:r0 + rows] = p
+    return tuple(outs)
+
+
 def operand_planes(x, cfg: EulerConfig):
-    """(val, rem) planes for one operand under ``cfg`` (STE gradients)."""
+    """(val, rem) planes for one operand under ``cfg`` (STE gradients).
+
+    The per-tensor statistics (the pow2 pre-scale, logfxp's max) come from
+    the whole tensor; the elementwise codec then runs over slices of the
+    leading dimension of at most ``PLANE_CHUNK`` values."""
     if cfg.mode == "exact":
         return x.to(cfg.dtype), None
+    if cfg.mode == "logfxp":
+        frac_exp = LM.fxp_frac_exp(x.to(torch.float32), cfg.width)
+
+        def planes(xc):
+            val, rem = LM.logfxp_planes(xc.to(torch.float32), cfg.width,
+                                        cfg.stages, frac_exp)
+            return _ste(val, xc).to(cfg.dtype), rem.detach().to(cfg.dtype)
+
+        return _by_leading_rows(planes, x)
     pc = cfg.posit
     s = (_pow2_scale(x) if cfg.pre_scale
          else torch.ones((), dtype=torch.float32, device=x.device))
-    xs = x.to(torch.float32) / s
     if cfg.mode in ("posit", "quant_only"):
-        q = P.quantize(xs, pc) * s
-        return _ste(q, x).to(cfg.dtype), None
-    if cfg.mode == "euler":
-        val, rem = LM.ilm_planes_from_float(
-            xs, pc, cfg.stages, cfg.trunc, cfg.sublane)
-        return (_ste(val * s, x).to(cfg.dtype),
-                (rem * s).detach().to(cfg.dtype))
-    raise ValueError(f"unknown mode {cfg.mode}")
+        def planes(xc):
+            q = P.quantize(xc.to(torch.float32) / s, pc) * s
+            return _ste(q, xc).to(cfg.dtype), None
+    elif cfg.mode == "euler":
+        def planes(xc):
+            val, rem = LM.ilm_planes_from_float(
+                xc.to(torch.float32) / s, pc, cfg.stages, cfg.trunc,
+                cfg.sublane)
+            return (_ste(val * s, xc).to(cfg.dtype),
+                    (rem * s).detach().to(cfg.dtype))
+    else:
+        raise ValueError(f"unknown mode {cfg.mode}")
+    return _by_leading_rows(planes, x)
 
 
 def euler_dot_general(a, b, dimension_numbers, cfg: EulerConfig):

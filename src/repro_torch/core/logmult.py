@@ -74,3 +74,45 @@ def ilm_planes_from_float(x, cfg: P.PositConfig, n: int, m: int | None,
     return ilm_planes_from_fields(f["sign"], f["scale"], f["frac"],
                                   f["is_zero"] | f["is_nar"],
                                   cfg.frac_window, n, m, sublane, dtype)
+
+
+# --------------------------------------------------------------------------
+# Log-fixed-point baseline (paper Table VI "Log-fxp_n" rows)
+# --------------------------------------------------------------------------
+
+def fxp_frac_exp(x, bits: int) -> torch.Tensor:
+    """The per-tensor fraction exponent of :func:`fxp_quantize`: the
+    largest magnitude lands just below ``2^(bits - 2)`` (int32, 0-dim)."""
+    amax = torch.max(torch.abs(x)) + 1e-30
+    return (bits - 2) - torch.ceil(torch.log2(amax)).to(torch.int32)
+
+
+def fxp_quantize(x, bits: int, frac_bits=None):
+    """Symmetric fixed-point quantization with a per-tensor power-of-2
+    scale ``2^frac_exp``.  Returns (dequantized, integer codes, scale).
+
+    The scale is the exact power of two (``torch.exp2``); the reference's
+    ``jnp.exp2`` on XLA:CPU is not exact for |frac_exp| >= 13 (ROADMAP
+    queue 3), so the two agree bit for bit only below that."""
+    x = torch.as_tensor(x)
+    frac_exp = (fxp_frac_exp(x, bits) if frac_bits is None
+                else torch.as_tensor(frac_bits, dtype=torch.int32,
+                                     device=x.device))
+    scale = torch.exp2(frac_exp.to(torch.float32))
+    lim = 2 ** (bits - 1) - 1
+    q = torch.clamp(torch.round(x * scale), -lim, lim)
+    return q / scale, q.to(torch.int32), scale
+
+
+def logfxp_planes(x, bits: int, n: int, frac_bits=None):
+    """ILM planes for the log-fixed-point baseline multiplier: the codes'
+    magnitudes with their top ``n`` set bits cleared.  ``frac_bits`` fixes
+    the exponent (a slice of a tensor whose exponent came from the
+    whole)."""
+    _, q, scale = fxp_quantize(x, bits, frac_bits)
+    mag = torch.abs(q).to(torch.int64)
+    rem_mag = clear_top_set_bits(mag, n)
+    sgn = torch.sign(q).to(torch.float32)
+    val = sgn * mag.to(torch.float32) / scale
+    rem = sgn * rem_mag.to(torch.float32) / scale
+    return val, rem

@@ -1,3 +1,5 @@
-from .pipeline import SyntheticLM, TokenFileDataset, batch_for_step
+from .pipeline import (SyntheticLM, TokenFileDataset, batch_for_step,
+                       embedding_table)
 
-__all__ = ["SyntheticLM", "TokenFileDataset", "batch_for_step"]
+__all__ = ["SyntheticLM", "TokenFileDataset", "batch_for_step",
+           "embedding_table"]

@@ -101,15 +101,39 @@ class TokenFileDataset:
         return _as_batch(toks.astype(np.int32) % self.vocab, device)
 
 
+def embedding_table(seed: int, vocab: int, dim: int, device="cpu"):
+    """The stub frontend's fixed random ``[vocab, dim]`` table times 0.02,
+    drawn on the CPU from a ``torch.Generator`` seeded with ``seed`` (the
+    reference draws it with ``jax.random.normal(PRNGKey(seed))``: the
+    numbers differ, the distribution does not)."""
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    t = torch.randn((vocab, dim), generator=gen, dtype=torch.float32)
+    return (t * 0.02).to(device)
+
+
 def batch_for_step(source, step: int, batch: int, seq: int, *, shard: int = 0,
                    num_shards: int = 1, embeddings_dim: int | None = None,
-                   device="cpu"):
-    """Uniform entry point.  ``embeddings_dim`` (the audio/vlm stub
-    frontend) is refused: the reference draws its projection with JAX's
-    PRNG, and no family with ``embedding_inputs`` is ported yet (ROADMAP
-    queue 1 item 4)."""
+                   table=None, device="cpu"):
+    """Uniform entry point.  With ``embeddings_dim`` (audio/vlm archs) the
+    inputs become stub frontend embeddings: rows of a fixed random
+    ``[vocab, embeddings_dim]`` table gathered by the token ids; the labels
+    stay ids.  ``table`` gives the table (a tensor or numpy array, e.g. the
+    reference's own); by default :func:`embedding_table` draws it from the
+    source's seed."""
+    b = source.batch(step, batch, seq, shard, num_shards, device=device)
     if embeddings_dim is not None:
-        raise NotImplementedError(
-            "embedding inputs (the audio/vlm stub frontend) are not ported "
-            "yet; see ROADMAP queue 1 item 4")
-    return source.batch(step, batch, seq, shard, num_shards, device=device)
+        if table is None:
+            table = embedding_table(source.seed, source.vocab,
+                                    embeddings_dim, device)
+        if not isinstance(table, torch.Tensor):
+            table = torch.from_numpy(np.array(table, dtype=np.float32))
+        table = table.to(device=device, dtype=torch.float32)
+        if tuple(table.shape) != (source.vocab, embeddings_dim):
+            raise ValueError(f"embedding table {tuple(table.shape)} is not "
+                             f"[{source.vocab}, {embeddings_dim}]")
+        ids = b["inputs"]
+        rows = torch.index_select(table, 0, ids.reshape(-1))
+        b = {"inputs": rows.reshape(*ids.shape, embeddings_dim),
+             "labels": b["labels"]}
+    return b

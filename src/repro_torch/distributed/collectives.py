@@ -7,7 +7,7 @@ and ``ef_compress``, which ``training.train_step`` applies under
 ``compress_grads``.  Both packages round half to even, so the int8 words
 and scales are bit-identical.  The collectives themselves
 (``compressed_psum``/``pmean``, ``bucketed``) wait for the multi-device
-slice (ROADMAP queue 1 item 8).
+slice (ROADMAP queue 1, multi-device).
 """
 from __future__ import annotations
 

@@ -4,13 +4,20 @@ requests through the continuous-batching scheduler.
   python -m repro_torch.launch.serve --arch gemma2-2b --full --paged \\
       --cache-dtype uint16 --backend cuda
   python -m repro_torch.launch.serve --arch mamba2-1.3b --full --backend cuda
+  python -m repro_torch.launch.serve --arch llama4-scout-17b-a16e --full \
+      --layers 4 --paged --cache-dtype uint16 --backend cuda
 
 Runs on ``--device cuda`` (the default) and raises when no CUDA device is
 present; ``--device cpu`` runs the kernels' plain versions on the CPU
 (tests use it with the SMOKE config).  Float32 contractions run at full
-precision (``pin_exact_f32``: no TF32).  ``--arch`` takes gemma2-2b,
-mamba2-1.3b and hymba-1.5b; the last two hold recurrent SSM state and
-serve from a dense cache only (``--paged`` raises).
+precision (``pin_exact_f32``: no TF32).  ``--arch`` takes the ten ids of
+``repro_torch.configs.ALIASES``; ``--layers`` cuts the chosen config's
+depth (full width, seeded random weights).  mamba2-1.3b and hymba-1.5b
+hold recurrent SSM state and serve from a dense cache only (``--paged``
+raises).  The audio (musicgen-large) and vlm (chameleon-34b) families are
+served from token ids (musicgen's EnCodec codes), as the reference
+launcher serves them; their stub frontend's float embeddings go through
+``Model.prefill`` directly.
 
 Numerics: ``--euler``/``--width`` give a uniform policy, ``--policy`` a
 PrecisionPolicy JSON (inline or a file, the reference's schema) through
@@ -103,6 +110,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="gemma2-2b")
     ap.add_argument("--full", action="store_true",
                     help="serve the FULL configuration (default: SMOKE)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the config to this many layers (0: all)")
     ap.add_argument("--euler", default="L-21b",
                     help="paper variant, L-1 .. L-22b, or 'exact' (the "
                          "exact backend ignores it)")
@@ -179,6 +188,8 @@ def main(argv=None) -> dict:
     pin_exact_f32()
     mod = C.get_config(args.arch)
     cfg = mod.FULL if args.full else mod.SMOKE
+    if args.layers:
+        cfg = cfg.replace(n_layers=args.layers)
     nctx = build_numerics(args, guard=args.guard)
     levels = build_levels(args, nctx)
     model = Model(cfg, remat=False, numerics=nctx, device=args.device)

@@ -13,7 +13,8 @@ cpu``.  ``--backend lax_ref`` (the default) is the differentiable path;
 ``cuda`` is forward-only and refuses at the first step.  Runs are
 bit-identical on replay: float32 contractions at full precision
 (``pin_exact_f32``) under :func:`deterministic`.  ``--mesh`` takes only
-``local``: the multi-device slice is not ported (ROADMAP queue 1 item 8).
+``local``: the multi-device slice is not ported (ROADMAP queue 1,
+multi-device).
 
 Its numerics come from ``launch.build_numerics``, shared with
 ``launch.serve``.
@@ -108,8 +109,8 @@ def main(argv=None) -> dict:
     args = parser().parse_args(argv)
     if args.mesh != "local":
         raise SystemExit(f"--mesh {args.mesh}: the multi-device slice is not "
-                         f"ported yet (ROADMAP queue 1 item 8); use --mesh "
-                         f"local")
+                         f"ported yet (ROADMAP queue 1, multi-device); use "
+                         f"--mesh local")
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available; "
                            "pass --device cpu to run on the CPU")

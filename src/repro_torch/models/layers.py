@@ -1,12 +1,15 @@
-"""Composable layers of the dense family.  Every matmul routes through
-``repro_torch.numerics``.
+"""Composable layers: attention, MLPs and the mixture of experts.  Every
+matmul routes through ``repro_torch.numerics``.
 
-Counterpart of ``repro.models.layers`` (dense parts): functional style,
+Counterpart of ``repro.models.layers`` on one device: functional style,
 ``*_apply(params, x, ctx)`` on dicts of tensors.  Attention traces under
-the ``attn`` scope and MLPs under ``mlp``, so a ``PrecisionPolicy`` rule
-like ``("*attn*", P8)`` hits exactly the attention ops.  Norms, softmax,
-RoPE and elementwise nonlinearities run in exact f32; the casts between
-the compute dtype and f32 mirror the reference.
+the ``attn`` scope, MLPs under ``mlp`` and MoE under ``moe``, so a
+``PrecisionPolicy`` rule like ``("*attn*", P8)`` hits exactly the
+attention ops.  The reference's expert-parallel ``shard_map`` branch of
+the MoE (and its ZeRO-3 weight gather) waits for the multi-device slice.
+Norms, softmax, RoPE, router logits and elementwise nonlinearities run in
+exact f32; the casts between the compute dtype and f32 mirror the
+reference.
 
 KV caches are updated in place (the reference returns new arrays): a
 layer's cache is a view into the model's ``[L, ...]`` stack, and
@@ -371,3 +374,111 @@ def mlp_apply(p, x, ctx: Ctx, kind: str):
     else:
         raise ValueError(kind)
     return dense_apply(p["wo"], h, ctx)
+
+
+# --------------------------------------------------------------------------
+# Mixture of Experts (top-k router, sort-free capacity dispatch)
+# --------------------------------------------------------------------------
+
+def moe_init(gen, cfg, device):
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+
+    def experts(d_in, d_out):
+        w = torch.randn((E, d_in, d_out), generator=gen, device=device,
+                        dtype=torch.float32)
+        return {"w": w.mul_(d_in ** -0.5)}
+
+    p = {"router": dense_init(gen, d, E, device, scale=0.02),
+         "wi": experts(d, f), "wg": experts(d, f), "wo": experts(f, d)}
+    if cfg.moe_dense_residual:
+        p["dense"] = mlp_init(gen, cfg, device)
+    return p
+
+
+def moe_route(xt, router_w, k: int):
+    """The router on tokens ``xt`` [n, d]: exact f32 logits ``xt @ w``,
+    the softmax, its top ``k`` (ties to the lower expert id, as
+    ``lax.top_k``) and the gates renormalised.  Returns (probabilities
+    [n, E] f32, gates [n, k] at ``xt``'s dtype, ids [n, k] int64)."""
+    logits = xt.to(torch.float32) @ router_w
+    probs = _X.softmax(logits, dim=-1)
+    # a stable descending sort keeps equal probabilities in id order
+    ids = torch.sort(probs, dim=-1, descending=True,
+                     stable=True).indices[:, :k]
+    gates = torch.gather(probs, 1, ids)
+    gates = (gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+             ).to(xt.dtype)
+    return probs, gates, ids
+
+
+def moe_capacity(n_tok: int, k: int, E: int, capacity_factor: float) -> int:
+    """Tokens each expert takes: ``round`` half to even, as the reference's
+    Python ``round`` (32 tokens, k = 1, E = 16, factor 1.25 gives 2)."""
+    return int(max(1, round(n_tok * k / E * capacity_factor)))
+
+
+def moe_dispatch(ids, E: int, cap: int):
+    """Sort-free capacity dispatch of the router's choices ``ids`` [n, k]:
+    each (token, choice) in token-major order takes the next free rank of
+    its expert.  Returns (flat expert ids [n*k], ranks [n*k], keep mask
+    [n*k]: rank < cap)."""
+    flat_e = ids.reshape(-1)
+    onehot = F.one_hot(flat_e, E).to(torch.int32)
+    # an integer prefix sum over the tokens (torch's deterministic mode
+    # refuses only float cumsum on a card)
+    rank = (torch.cumsum(onehot, 0, dtype=torch.int32) - 1).gather(
+        1, flat_e[:, None])[:, 0]
+    return flat_e, rank, rank < cap
+
+
+def _moe_expert_block(xt, ids, gates, wi, wg, wo, cap: int, nctx):
+    """Dispatch the tokens ``xt`` [n, d] to their experts' capacity
+    buffers [E, cap, d], run the expert FFNs (three batched contractions
+    through the numerics layer, batch dimension 0) and combine back to
+    token order weighted by the gates.  Single device: every expert is
+    local."""
+    n, k = ids.shape
+    d = xt.shape[-1]
+    E = wi.shape[0]
+    flat_e, rank, keep = moe_dispatch(ids, E, cap)
+    tok = torch.arange(n, device=xt.device).repeat_interleave(k)
+    # kept (expert, rank) slots are unique: a plain indexed write
+    buf = torch.zeros((E, cap, d), dtype=xt.dtype, device=xt.device)
+    buf = buf.index_put((flat_e[keep], rank[keep].to(torch.long)),
+                        xt[tok[keep]])
+    dnb = (((2,), (1,)), ((0,), (0,)))
+    h = N.dot_general(buf, wi, dnb, nctx, op="matmul")
+    g = N.dot_general(buf, wg, dnb, nctx, op="matmul")
+    h = _X.silu(g) * h
+    out = N.dot_general(h, wo, dnb, nctx, op="matmul")      # [E, cap, d]
+    got = out[torch.where(keep, flat_e, 0),
+              torch.where(keep, rank, 0).to(torch.long)]
+    got = torch.where(keep[:, None], got, torch.zeros((), dtype=got.dtype,
+                                                      device=got.device))
+    # each token's k contributions, added in choice order onto zero
+    parts = (got * gates.reshape(-1)[:, None]).reshape(n, k, d)
+    y = torch.zeros((n, d), dtype=parts.dtype, device=parts.device)
+    for j in range(k):
+        y = y + parts[:, j]
+    return y
+
+
+@N.scoped("moe")
+def moe_apply(p, x, ctx: Ctx, cfg):
+    """Top-k MoE on one device: the router, the capacity dispatch, the
+    expert FFNs, the optional dense residual MLP and the Switch-style
+    load-balancing aux loss.  Returns (y [B, T, d], aux)."""
+    B, T, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    n_tok = B * T
+    xt = x.reshape(n_tok, d)
+    probs, gates, ids = moe_route(xt, p["router"]["w"], k)
+    cap = moe_capacity(n_tok, k, E, cfg.capacity_factor)
+    y = _moe_expert_block(xt, ids, gates, p["wi"]["w"], p["wg"]["w"],
+                          p["wo"]["w"], cap, ctx.numerics)
+    if cfg.moe_dense_residual:
+        y = y + mlp_apply(p["dense"], xt, ctx, "silu_gated")
+    me = torch.mean(probs, 0)
+    ce = torch.mean(F.one_hot(ids[:, 0], E).to(torch.float32), 0)
+    aux = E * torch.sum(me * ce)
+    return y.to(x.dtype).reshape(B, T, d), aux

@@ -1,12 +1,16 @@
-"""Decoder-only backbone with EULER-ADAS numerics, three families:
+"""Decoder-only backbone with EULER-ADAS numerics, six families:
 
-  dense   attention + MLP blocks (per-layer local/global windows, gemma2's
-          post-block norms)
+  dense / audio / vlm  attention + MLP blocks (per-layer local/global
+          windows, gemma2's post-block norms); audio and vlm differ only in
+          the stubbed modality frontend (``embedding_inputs``: ``forward``
+          also takes float frame/patch embeddings)
+  moe     attention + mixture-of-experts blocks (optional dense residual);
+          each block's router aux loss is summed over the stack
   ssm     Mamba-2 SSD blocks (attention-free; ``models.ssm``)
   hybrid  parallel attention + SSD heads per block, each branch normalized,
           then averaged, then an MLP (hymba)
 
-Counterpart of ``repro.models.transformer`` for those families: init,
+Counterpart of ``repro.models.transformer`` on one device: init,
 forward, head, the T-chunked cross-entropy ``loss``, prefill,
 decode_step, dense caches (KV slabs, SSM state and conv tail) and the
 paged KV pool (attention-only: ``ssm``/``hybrid`` hold
@@ -42,7 +46,8 @@ from . import ssm as S
 from .config import ModelConfig
 from .layers import Ctx
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+_ATTN_MLP = ("dense", "audio", "vlm")
 
 # the reference's remat policies: "none" and "nothing" recompute every
 # activation (``jax.checkpoint``'s default policy saves nothing), and
@@ -111,14 +116,18 @@ class Model:
         cfg, dev = self.cfg, self.device
         fam = cfg.family
         p = {"ln1": L.rmsnorm_init(cfg.d_model, dev)}
-        if fam in ("dense", "hybrid"):
+        if fam != "ssm":
             p["attn"] = L.attention_init(gen, cfg, dev)
             if cfg.post_norm:
                 p["pn1"] = L.rmsnorm_init(cfg.d_model, dev)
+        if fam in _ATTN_MLP + ("hybrid",):
             p["ln2"] = L.rmsnorm_init(cfg.d_model, dev)
             p["mlp"] = L.mlp_init(gen, cfg, dev)
             if cfg.post_norm:
                 p["pn2"] = L.rmsnorm_init(cfg.d_model, dev)
+        if fam == "moe":
+            p["ln2"] = L.rmsnorm_init(cfg.d_model, dev)
+            p["moe"] = L.moe_init(gen, cfg, dev)
         if fam in ("ssm", "hybrid"):
             p["ssm"] = S.ssm_init(gen, cfg, dev)
         if fam == "hybrid":
@@ -161,11 +170,14 @@ class Model:
     # ------------------------------------------------------------------
 
     def _block(self, p, x, ctx: Ctx, window, positions, cache):
+        """One block: (x, cache, aux); aux is the MoE router's loss (a
+        float32 0 in the other families)."""
         cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "ssm":
             h, _ = S.ssm_apply(p["ssm"], L.rmsnorm_apply(p["ln1"], x), ctx,
                                cfg, cache)
-            return x + h.to(x.dtype), cache
+            return x + h.to(x.dtype), cache, aux
         if cfg.family == "hybrid":
             xin = L.rmsnorm_apply(p["ln1"], x)
             a_cache = s_cache = None
@@ -183,7 +195,8 @@ class Model:
             x = x + h.to(x.dtype)
             x = x + L.mlp_apply(p["mlp"], L.rmsnorm_apply(p["ln2"], x), ctx,
                                 cfg.mlp).to(x.dtype)
-            return x, cache
+            return x, cache, aux
+        # attention families: dense / audio / vlm / moe
         h, cache = L.attention_apply(p["attn"], L.rmsnorm_apply(p["ln1"], x),
                                      ctx, cfg, window, positions, cache,
                                      q_chunk=cfg.q_chunk,
@@ -191,11 +204,15 @@ class Model:
         if cfg.post_norm:
             h = L.rmsnorm_apply(p["pn1"], h)
         x = x + h.to(x.dtype)
-        h = L.mlp_apply(p["mlp"], L.rmsnorm_apply(p["ln2"], x), ctx, cfg.mlp)
+        xin = L.rmsnorm_apply(p["ln2"], x)
+        if cfg.family == "moe":
+            h, aux = L.moe_apply(p["moe"], xin, ctx, cfg)
+        else:
+            h = L.mlp_apply(p["mlp"], xin, ctx, cfg.mlp)
         if cfg.post_norm:
             h = L.rmsnorm_apply(p["pn2"], h)
         x = x + h.to(x.dtype)
-        return x, cache
+        return x, cache, aux
 
     def _checkpointed(self, cache) -> bool:
         """Whether to rematerialize: remat on, autograd recording, and no
@@ -205,6 +222,14 @@ class Model:
     def forward(self, params, inputs, ctx: Ctx, cache=None, positions=None):
         """inputs: token ids [B, T] or float embeddings [B, T, d].
         Returns (hidden [B, T, d], cache) — the cache updated in place."""
+        x, cache, _ = self.forward_aux(params, inputs, ctx, cache, positions)
+        return x, cache
+
+    def forward_aux(self, params, inputs, ctx: Ctx, cache=None,
+                    positions=None):
+        """:meth:`forward` that also returns the blocks' aux loss summed
+        over the stack, layer by layer from 0 (the reference's scan
+        carry): (hidden, cache, aux)."""
         if torch.is_floating_point(inputs):
             x = inputs.to(self.compute_dtype)
         else:
@@ -219,19 +244,21 @@ class Model:
                                      device=x.device)
                 positions = dp.reshape(1) if dp.ndim == 0 else dp[:, None]
         remat = self._checkpointed(cache)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, (p_l, win) in enumerate(zip(params["layers"],
                                            self.layer_windows())):
             c_l = (None if cache is None else
                    {name: a[i] for name, a in cache.items()})
-            if remat:
-                x = checkpoint(
+            if remat:   # the block's (x, aux); no cache under remat
+                x, a = checkpoint(
                     lambda p, h, w: self._block(p, h, ctx, w, positions,
-                                                None)[0],
+                                                None)[::2],
                     p_l, x, win, use_reentrant=False)
             else:
-                x, _ = self._block(p_l, x, ctx, win, positions, c_l)
+                x, _, a = self._block(p_l, x, ctx, win, positions, c_l)
+            aux = aux + a
         x = L.rmsnorm_apply(params["ln_f"], x)
-        return x, cache
+        return x, cache, aux
 
     def head(self, params, h, ctx: Ctx):
         """hidden [..., d] -> logits [..., vocab_padded] (tied embeddings)."""
@@ -261,9 +288,9 @@ class Model:
         in the backward pass under remat.
 
         batch: {"inputs": ids [B, T] or embeds [B, T, d], "labels": ids
-        [B, T]}.  Returns (loss, {"xent", "aux"}); aux is 0 (no MoE family
-        is ported)."""
-        hidden, _ = self.forward(params, batch["inputs"], ctx)
+        [B, T]}.  Returns (loss, {"xent", "aux"}): the moe family adds
+        ``0.01 * aux``, the router loss summed over the blocks."""
+        hidden, _, aux = self.forward_aux(params, batch["inputs"], ctx)
         labels = batch["labels"]
         B, T = labels.shape
         tc = min(self.cfg.loss_chunk, T)
@@ -283,8 +310,8 @@ class Model:
                 part = self._chunk_loss(params, h_c, y_c, ctx)
             total = total + part
         xent = total / (B * T)
-        aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
-        return xent, {"xent": xent, "aux": aux}
+        loss = xent + 0.01 * aux if self.cfg.family == "moe" else xent
+        return loss, {"xent": xent, "aux": aux}
 
     # ------------------------------------------------------------------
     # Serving
@@ -299,7 +326,7 @@ class Model:
         dtype = torch_dtype(dtype or cfg.cache_dtype)
         fdt = torch.bfloat16 if dtype == torch.uint8 else dtype
         c = {}  # one layer's leaves, on the meta device for their shapes
-        if cfg.family in ("dense", "hybrid"):
+        if cfg.family != "ssm":
             c.update(L.attention_cache_init(cfg, batch, max_len, dtype,
                                             "meta"))
         if cfg.family in ("ssm", "hybrid"):

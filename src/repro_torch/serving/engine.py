@@ -8,8 +8,12 @@ and supervised restart build on it in ``serving.failover``.
 * ``ServeEngine`` owns the model's KV cache and exposes the slot
   primitives: ``prefill_slot`` (batch-1 prefill fully overwriting a slot),
   ``step_slots`` (one masked decode step over every slot, each at its own
-  position) and the cache lifecycle (``reset_all``/``release_slot``).  The
-  reference's on-device ``lax.scan`` over decode steps is a host loop here.
+  position) and the cache lifecycle (``reset_all``/``reset_slot``/
+  ``release_slot``).  ``generate`` keeps the reference's whole-batch,
+  lockstep API on the dense cache: an EOS-aware decode that pads finished
+  rows and exits early, checked every ``decode_chunk`` steps.  The
+  reference's on-device ``lax.scan`` over decode steps is a host loop
+  here.
 * ``RequestBatcher`` is the host-side scheduler: queued -> prefill (slot
   admission, per-request bucket) -> decoding -> done (EOS | budget) ->
   slot refilled from the queue mid-stream.  Prompts longer than
@@ -101,6 +105,7 @@ def _sample(logits, gen: GenerationConfig, sub: int):
 class ServeEngine:
     def __init__(self, model, params, ctx: Ctx | None = None, *,
                  max_len: int = 2048, batch: int = 8, cache_dtype=None,
+                 decode_chunk: int = 8,
                  numerics: NumericsContext | None = None,
                  fault: FaultPlan | None = None,
                  levels: "Sequence[NumericsContext] | None" = None,
@@ -109,7 +114,10 @@ class ServeEngine:
         carries.  ``paged`` switches the KV cache to the page-pool layout;
         decode then runs through the ``decode_attention`` numerics op (the
         fused flash-decode kernel on the ``cuda`` backend for integer
-        pages).
+        pages) and ``generate`` is refused.
+
+        ``decode_chunk``: how many decode steps ``generate`` runs between
+        its all-done checks (the early-exit granularity).
 
         ``fault``: a live fault plan.  Each decode step runs under
         ``faults.inject`` with a key folded from the plan's seed and the
@@ -133,6 +141,7 @@ class ServeEngine:
         self.ctx = ctx
         self.max_len = max_len
         self.batch = batch
+        self.decode_chunk = max(1, decode_chunk)
         self.paged = paged
         self.device = model.device
         self._cache_dtype = cache_dtype
@@ -159,6 +168,7 @@ class ServeEngine:
         self.n_levels = len(self._ctxs)
         self.fault = fault
         self.fault_step = 0  # decode-step counter for fault keys
+        self.last_decode_steps = 0  # decode steps run by the last generate
 
     # -- cache lifecycle ------------------------------------------------
 
@@ -167,6 +177,14 @@ class ServeEngine:
         if self.kv is not None:
             self.kv.reset()
         self.model.reset_cache(self.cache)
+
+    def reset_slot(self, slot: int):
+        """Invalidate one slot: zero its cache rows (dense) or return its
+        pages to the pool (paged; pool rows are overwritten on reuse)."""
+        if self.kv is not None:
+            self.kv.free_slot(slot)
+            return
+        self.model.reset_cache(self.cache, slot)
 
     def release_slot(self, slot: int):
         """Return a slot's pages to the pool (dense engines: no-op).  Plain
@@ -191,16 +209,18 @@ class ServeEngine:
         return grown
 
     def _step(self, gen, tok, pos, done, key, level: int = 0, cache=None,
-              page_table=None, write_mask=None):
+              page_table=None, write_mask=None, fstep=None):
         """One masked decode step at ladder ``level`` over ``cache`` (the
-        engine's own by default): the reference's scan body.  Returns
-        (tokens, positions, done, the next key)."""
+        engine's own by default): the reference's scan body.  ``fstep``
+        is the fault step (default: the engine's ``fault_step``).
+        Returns (tokens, positions, done, the next key)."""
         cache = self.cache if cache is None else cache
+        fstep = self.fault_step if fstep is None else fstep
         if self.fault is None:
             faults_on = contextlib.nullcontext()
         else:
-            fkey = _faults.fold_in(self.fault.seed, self.fault_step)
-            faults_on = _faults.inject(self.fault, fkey, self.fault_step)
+            fkey = _faults.fold_in(self.fault.seed, fstep)
+            faults_on = _faults.inject(self.fault, fkey, fstep)
         with faults_on:
             logits, _ = self.model.decode_step(
                 self.params, tok, pos, cache, self._ctxs[level],
@@ -214,6 +234,74 @@ class ServeEngine:
         if gen.eos_id is not None:
             done = done | (nxt == gen.eos_id)
         return nxt, pos, done, key
+
+    # -- whole-batch generation -----------------------------------------
+
+    def _decode_scan(self, gen: GenerationConfig, n: int, tok, pos, done,
+                     key, fstep: int):
+        """``n`` masked lockstep decode steps on the dense cache, the
+        reference's scanned program as a host loop.  Carry: (tok [B], pos
+        [B], done [B], key, fstep); finished rows emit ``pad_id`` and keep
+        their position, active rows clamp it to ``max_len - 1``; ``fstep``
+        drives the fault plan's keys and advances every step.  Returns
+        (the carry, tokens [n, B])."""
+        toks = []
+        for _ in range(n):
+            tok, pos, done, key = self._step(gen, tok, pos, done, key,
+                                             fstep=fstep)
+            fstep += 1
+            toks.append(tok)
+        return (tok, pos, done, key, fstep), torch.stack(toks)
+
+    def generate(self, prompts, gen: GenerationConfig, key=None):
+        """prompts: [B, Tp] int token ids (right-aligned in one bucket),
+        B the engine's batch.  Returns tokens [B, max_new_tokens] (a
+        tensor on the engine's device).
+
+        The whole cache is reset, the batch prefilled in lockstep and then
+        decoded ``decode_chunk`` steps at a time.  With ``gen.eos_id`` a
+        row stops at (and including) its first EOS and emits ``pad_id``
+        afterwards; decoding stops once every row is done, and the output
+        is padded to the full width.  Dense cache only: a paged engine
+        serves through ``RequestBatcher``."""
+        if self.kv is not None:
+            raise RuntimeError(
+                "generate() is whole-batch/bucketed; a paged engine serves "
+                "through RequestBatcher (prefill_slot/step_slots)")
+        dev = self.device
+        prompts = torch.as_tensor(prompts, device=dev).to(torch.int32)
+        B, Tp = prompts.shape
+        if B != self.batch:
+            raise ValueError(f"generate needs a batch of {self.batch} "
+                             f"prompts, got {B}")
+        if gen.max_new_tokens <= 0:
+            return torch.zeros((B, 0), dtype=torch.int32, device=dev)
+        key = key if key is not None else make_key(0)
+        self.reset_all()  # no state from a previous generate can leak in
+        logits, _ = self.model.prefill(self.params, prompts, self.ctx,
+                                       self.cache)
+        key, sub = split_key(key)
+        tok = _sample(logits, gen, sub)
+        done = (tok == gen.eos_id if gen.eos_id is not None
+                else torch.zeros((B,), dtype=torch.bool, device=dev))
+        pos = torch.full((B,), Tp, dtype=torch.int32, device=dev)
+        outs = [tok[:, None]]  # the first token comes from the prefill
+        remaining = gen.max_new_tokens - 1
+        steps, fstep = 0, 0
+        while remaining > 0 and not bool(done.all()):
+            n = min(self.decode_chunk, remaining)
+            (tok, pos, done, key, fstep), toks = self._decode_scan(
+                gen, n, tok, pos, done, key, fstep)
+            outs.append(toks.T)
+            remaining -= n
+            steps += n
+        self.last_decode_steps = steps
+        out = torch.cat(outs, dim=1)
+        if out.shape[1] < gen.max_new_tokens:  # early exit: pad the rest
+            out = torch.nn.functional.pad(
+                out, (0, gen.max_new_tokens - out.shape[1]),
+                value=gen.pad_id)
+        return out
 
     # -- slot-level primitives (used by the scheduler) -------------------
 

@@ -56,8 +56,20 @@ def test_batch_for_step_matches_and_refuses_embeddings():
                             num_shards=2)
     src = SyntheticLM(vocab=512, seed=2)
     _same(batch_for_step(src, 4, 4, 16, shard=1, num_shards=2), want)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        batch_for_step(src, 0, 4, 16, embeddings_dim=32)
+    # the stub frontend (once refused): the reference's own table gives
+    # the reference's embedding batch
+    import jax
+    import jax.numpy as jnp
+    table = np.asarray(jax.random.normal(jax.random.PRNGKey(2), (512, 32),
+                                         jnp.float32) * 0.02)
+    emb = j_batch_for_step(JSynth(vocab=512, seed=2), 0, 4, 16,
+                           embeddings_dim=32)
+    got = batch_for_step(src, 0, 4, 16, embeddings_dim=32, table=table)
+    assert got["inputs"].dtype == torch.float32
+    np.testing.assert_array_equal(got["inputs"].numpy(),
+                                  np.asarray(emb["inputs"]))
+    np.testing.assert_array_equal(got["labels"].numpy(),
+                                  np.asarray(emb["labels"]))
     with pytest.raises(ValueError, match="multiple"):
         src.batch(0, 5, 16, num_shards=2)
     assert batch_for_step(src, 0, 2, 8, device="meta")["inputs"].is_meta

@@ -238,8 +238,11 @@ def _grad_errors():
                   d_ff=128, vocab=256, ssm_state=8, ssm_head_dim=16,
                   ssm_chunk=8, n_global_layers=1, window=8,
                   loss_chunk=32, q_chunk=16, kv_chunk=16)
+    from repro.configs import llama4_scout_17b_a16e as JL
+    from repro_torch.configs import llama4_scout_17b_a16e as TL
     archs = dict(ARCHS, gemma2=(JG.SMOKE, TG.SMOKE),
-                 hybrid=(JConfig(**hybrid), TConfig(**hybrid)))
+                 hybrid=(JConfig(**hybrid), TConfig(**hybrid)),
+                 llama4=(JL.SMOKE, TL.SMOKE))
     for arch, (jc, tc) in archs.items():
         jp = JModel(jc).init(jax.random.PRNGKey(0))
         b = {k: np.asarray(v)

@@ -178,7 +178,7 @@ def test_launcher_refuses_cuda_backend_and_meshes():
     with pytest.raises(RuntimeError, match="lax_ref"):
         train.main(SMOKE_ARGS + ["--steps", "1", "--backend", "cuda"])
     for mesh in ("single", "multi"):
-        with pytest.raises(SystemExit, match="queue 1 item 8"):
+        with pytest.raises(SystemExit, match="queue 1, multi-device"):
             train.main(SMOKE_ARGS + ["--mesh", mesh])
     assert train.parser().parse_args([]).arch == "hymba-1.5b"
     assert not train.parser().parse_args([]).smoke  # FULL unless --smoke
