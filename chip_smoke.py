@@ -92,9 +92,12 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    one eval step with the trained parameters on ``cuda`` (the fused
    encode and logmac's tensor-core kernel, M = 256; the tile kernel not)
    against ``lax_ref``, within
-   2 (2e-3 + 1e-4 max|logit|); last, the plain codec's peak device bytes
-   per weight value over a forward and backward of a [2304, 25600]
-   weight;
+   2 (2e-3 + 1e-4 max|logit|); then one L-21b loss + gradient of
+   hymba-1.5b FULL from the launcher's initial state and first batch under
+   remat policy "nothing" and under "dots": loss and every gradient leaf
+   bit-equal, each one's seconds and peak memory; last, the plain codec's
+   peak device bytes per weight value over a forward and backward of a
+   [2304, 25600] weight;
 3h. llama4-scout-17b-a16e (moe) at full width (d_model 5120, 16 experts
    of d_ff 8192, top-1, vocab 202048) cut to ``LLAMA4_LAYERS`` layers,
    served through the launcher (``--layers``) with a paged uint16 cache
@@ -113,6 +116,25 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    batch 4 x 8-token prompts, 8 greedy tokens on a dense uint16 cache,
    equal to the model's prefill + decode_step loop; a ``RequestBatcher``
    drain of the same prompts beside it, the tokens it shares reported;
+3k. the public numerics API and the paper's arithmetic: (a) Table I, the
+   45 points (five width/SIMD groups x the eight ILM variants and R4BM)
+   of ``ilm_pair`` + ``error_metrics`` at n = 200,000 on the card, each
+   metric within rtol 1e-5 of the port's CPU path, printed beside the
+   paper's spot values; (b) ``with numerics.use(cfg, backend="cuda"):
+   numerics.matmul(x, w)`` at gemma2-2b width, x [4 | 128, 2304], w [2304,
+   9216], for the eight variants at P16 and L-21b at P8, P32, P16 8_16
+   and P32 8_16_32: each call one pair of fused encodes and one logmac
+   (the kernel its plan picks), within the per-element bound of
+   ``lax_ref``, its error metrics against the f64 product printed; (c) the
+   quire at K = 9216: bposit16 words from the fused encode decoded by the
+   decode kernel bit-equal to ``ref_decode`` on the CPU, and for 32
+   outputs ``ref_exact_posit_mac`` (the decode kernel, f32 matmul),
+   ``kahan_sum`` and ``chunked_sum`` against the exact ``np_quire_dot``
+   within ``tests/test_quire.py``'s bars; (d) gemma2-2b FULL's dot FLOPs
+   and bytes of a 128-token prefill, counted by ``analysis.costmodel`` on
+   ``exact``, over the median time of the same prefill on ``cuda``, as
+   shares of the card's peaks (a report); then the ``quickstart`` and
+   ``mixed_precision`` examples on the card, each with its assertions;
 4. each kernel timed with CUDA events (L2 flushed before every launch)
    beside its plain version, with the least time the card could take:
    ``ms`` with the host's issue of the call inside the window, as every
@@ -138,7 +160,8 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
 
 Launch counts are reset just before each path (3, 3b, 3c, 3d, the four
 drains of 3e, each model of 3f, the eval step of 3g, the drains of 3h and
-3i, 3i's frame prefill, 3j's generate and drain) and read just after;
+3i, 3i's frame prefill, 3j's generate and drain, each ``numerics.matmul``,
+the quire and the two examples of 3k) and read just after;
 each path asserts
 the kernels it launches, and the ``launches`` of the kernels line sum
 the paths.  ``--profile`` also
@@ -441,6 +464,274 @@ def profile_drain(eng, card: str) -> None:
         "wall_ms": wall_ms, "kernel_ms": busy, "ours": shares,
         "torch_ms": t_ms, "pre_scale_ms": p_ms, "pre_scale_launches": p_n,
         "card": card}))
+
+
+# ---- phase 3k: the public numerics API and the paper's arithmetic --------
+
+# the paper's Table I spot values (MSE, MAE, NMED, MRED) that
+# benchmarks/table1_error.py:21-26 quotes
+TABLE1_PAPER = {
+    (8, "scalar", "L-1"): (0.103, 0.257, 20.4e-3, 10.5e-3),
+    (8, "scalar", "L-2"): (0.089, 0.238, 19.6e-3, 9.2e-3),
+    (16, "scalar", "L-2"): (0.024, 0.124, 9.9e-3, 4.3e-3),
+    (32, "scalar", "L-2"): (0.026, 0.129, 8.9e-3, 3.9e-3),
+}
+TABLE1_GROUPS = ((8, "scalar"), (16, "scalar"), (16, "8_16"), (32, "scalar"),
+                 (32, "8_16_32"))
+TABLE1_N = 200_000
+# gemma2-2b's gate/up weight (K, N) for the public API, and its down
+# projection's (K, N) for the quire
+API_KN = (2304, 9216)
+QUIRE_KN = (9216, 2304)
+
+
+def table1_point(width: int, variant: str, simd: str, device,
+                 n: int = TABLE1_N, seed: int = 0) -> tuple[dict, dict]:
+    """One Table I point as ``benchmarks/table1_error.py:33-50`` builds it:
+    n operand pairs of magnitude 2^U(-4, 4) with random signs, the ILM
+    product (``ilm_pair``; for R4BM the exact-posit product, f32) against
+    the f64 product of the quantized operands.  Returns the four metrics
+    and the benchmark's normalized ones (MSE / scale^2, MAE / scale)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import posit as P
+    from repro_torch.core.engine import from_variant
+    from repro_torch.core.logmult import ilm_pair
+    from repro_torch.core.metrics import error_metrics
+    cfg = from_variant(width, "L-2" if variant == "R4BM" else variant,
+                       simd=simd)
+    pc = cfg.posit
+    rng = np.random.default_rng(seed)
+    mag = np.exp2(rng.uniform(-4, 4, size=n)).astype(np.float32)
+    a = torch.from_numpy((mag * rng.choice([-1, 1], n)).astype(np.float32))
+    b = torch.from_numpy((np.exp2(rng.uniform(-4, 4, n))
+                          * rng.choice([-1, 1], n)).astype(np.float32))
+    a, b = a.to(device), b.to(device)
+    qa, qb = P.quantize(a, pc), P.quantize(b, pc)
+    exact = (qa.double() * qb.double()).float()
+    approx = (qa * qb if variant == "R4BM" else
+              ilm_pair(a, b, pc, cfg.stages, cfg.trunc, cfg.sublane))
+    m = {k: float(v) for k, v in error_metrics(approx, exact).items()}
+    scale = float(exact.abs().mean())
+    norm = {"mse": m["mse"] / scale ** 2, "mae": m["mae"] / scale,
+            "nmed": m["nmed"], "mred": m["mred"]}
+    return m, norm
+
+
+def phase_numerics(dev, gen, card: str, path_launches, logmac_kernel,
+                   flops_cfg=None) -> dict:
+    """Phase 3k on the card: (a) Table I, (b) ``numerics.use(...,
+    backend="cuda")`` at gemma2-2b width, (c) the quire at K = 9216 through
+    the decode kernel, (d) the model FLOPs of ``flops_cfg`` (gemma2-2b
+    FULL).  Returns the launches of (b) and (c)."""
+    import numpy as np
+    import torch
+    from repro_torch import numerics as NU
+    from repro_torch.analysis import costmodel as CM
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.core import posit as P
+    from repro_torch.core import quire as Q
+    from repro_torch.core.engine import (VARIANT_NAMES, EulerConfig,
+                                         from_variant, operand_planes)
+    from repro_torch.core.metrics import error_metrics
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ops as OPS
+    from repro_torch.kernels import ref as KR
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.transformer import Model
+
+    # (a) Table I: the card against the port's CPU path
+    log(f"[table1] {card}: n = {TABLE1_N} pairs, numpy seed 0; raw MSE MAE NMED "
+        f"MRED, then the benchmark's normalized MSE MAE NMED MRED, the "
+        f"paper's where Table I quotes them")
+    for width, simd in TABLE1_GROUPS:
+        for v in VARIANT_NAMES + ("R4BM",):
+            got, norm = table1_point(width, v, simd, dev)
+            want, _ = table1_point(width, v, simd, "cpu")
+            for k in got:
+                assert abs(got[k] - want[k]) <= 1e-5 * abs(want[k]), (
+                    width, simd, v, k, got[k], want[k])
+            paper = TABLE1_PAPER.get((width, simd, v))
+            log(f"[table1] P{width} {simd:8s} {v:6s} raw "
+                f"{got['mse']:.6g} {got['mae']:.6g} {got['nmed']:.6g} "
+                f"{got['mred']:.6g} | normalized {norm['mse']:.5f} "
+                f"{norm['mae']:.5f} {norm['nmed']:.5f} {norm['mred']:.5f}"
+                + (f" | paper {paper}" if paper else ""))
+    log("[table1] 45 points: the card's metrics within rtol 1e-5 of the "
+        "CPU path's")
+
+    # (b) the public API through the kernels at gemma2-2b's gate/up shape
+    K, N = API_KN
+    w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+    cfgs = ([from_variant(16, v) for v in VARIANT_NAMES]
+            + [from_variant(8, "L-21b"), from_variant(32, "L-21b"),
+               from_variant(16, "L-21b", simd="8_16"),
+               from_variant(32, "L-21b", simd="8_16_32")])
+    api_launches = dict.fromkeys(_build.LAUNCHES, 0)
+    for M in (4, 128):
+        x = torch.randn((M, K), generator=gen, device=dev)
+        exact = x.double() @ w.double()
+        for cfg in cfgs:
+            what = f"P{cfg.width} {cfg.variant} {cfg.simd} M={M}"
+            _build.reset_launches()
+            with NU.use(cfg, backend="cuda"):
+                y = NU.matmul(x, w)
+            torch.cuda.synchronize()
+            got = path_launches(f"api {what}")
+            for k, n in got.items():
+                api_launches[k] += n
+            kern = logmac_kernel(M, N, K, cfg)
+            assert (got["posit_encode_prescaled"], got["logmac"],
+                    got[kern]) == (2, 1, 1), (what, got)
+            with NU.use(cfg, backend="lax_ref"):
+                ref = NU.matmul(x, w)
+            va, ra = operand_planes(x, cfg)
+            vb, rb = operand_planes(w, cfg)
+            bound = 1e-5 * (va.abs() @ vb.abs() + ra.abs() @ rb.abs()) + 1e-4
+            diff = (y - ref).abs()
+            assert bool((diff <= bound).all()), f"api {what}: outside bound"
+            m = {k: float(v) for k, v in error_metrics(y, exact).items()}
+            log(f"[api] {card}: numerics.matmul {what} [{M}, {K}] x [{K}, "
+                f"{N}] on cuda ({kern}): vs the f64 product MSE "
+                f"{m['mse']:.4g} MAE {m['mae']:.4g} NMED {m['nmed']:.4g} "
+                f"MRED {m['mred']:.4g}; vs lax_ref max |diff| "
+                f"{float(diff.max()):.3g} (bound min "
+                f"{float(bound.min()):.3g})")
+            del y, ref, va, ra, vb, rb, bound, diff
+    del w, x, exact
+
+    # (c) the quire at K = 9216 (the down projection), bposit16
+    pc = from_variant(16, "L-21b").posit
+    K, N = QUIRE_KN
+    x = torch.randn((4, K), generator=gen, device=dev)
+    w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+    _build.reset_launches()
+    wa, _ = OPS.encode_prescaled(x, pc)
+    wb, _ = OPS.encode_prescaled(w, pc)
+    va, vb = OPS.decode(wa, pc), OPS.decode(wb, pc)
+    f32 = KR.ref_exact_posit_mac(wa, wb, pc)
+    torch.cuda.synchronize()
+    quire_launches = path_launches("quire")
+    assert quire_launches["posit_decode"] == 4, quire_launches
+    for v, words in ((va, wa), (vb, wb)):
+        want = KR.ref_decode(words.cpu(), pc)
+        assert torch.equal(v.cpu().view(torch.int32), want.view(torch.int32))
+    rows = torch.randint(0, 4, (32,), generator=gen, device=dev)
+    cols = torch.randint(0, N, (32,), generator=gen, device=dev)
+    prods = va[rows] * vb[:, cols].T                          # [32, K] f32
+    kah = Q.kahan_sum(prods, -1).cpu()
+    chk = Q.chunked_sum(prods, -1, chunk=256).cpu()
+    f32s = f32[rows, cols].cpu()
+    wa_c, wb_c = wa.cpu().numpy(), wb.cpu().numpy()
+    dev_f32, dev_kah, dev_chk, same_word = [], [], [], 0
+    for s, (i, j) in enumerate(zip(rows.tolist(), cols.tolist())):
+        exact = Q.np_quire_dot(wa_c[i], wb_c[:, j], pc)
+        scale = float(abs(exact)) + 1e-3
+        for dl, got in ((dev_f32, f32s), (dev_kah, kah), (dev_chk, chk)):
+            dl.append(abs(float(got[s]) - float(exact)) / scale)
+        same_word += (P.np_encode(float(f32s[s]), pc)
+                      == Q.np_quire_round(exact, pc))
+    rk = np.sqrt(K)
+    for name, dl, tol in (("ref_exact_posit_mac f32", dev_f32, 1e-4),
+                          ("kahan_sum", dev_kah, 1e-5),
+                          ("chunked_sum", dev_chk, 1e-4)):
+        assert max(dl) < tol * rk, (name, max(dl), tol * rk)
+        log(f"[quire] {card}: bposit16 K = {K}, 32 outputs: {name} relative "
+            f"deviation from the exact quire max {max(dl):.3g} median "
+            f"{float(np.median(dl)):.3g} (bar {tol * rk:.3g})")
+    log(f"[quire] decode kernel bit-equal to ref_decode on [4, {K}] and "
+        f"[{K}, {N}]; {same_word} of 32 f32 results round to the exact "
+        f"quire's posit word; launches {quire_launches}")
+    del x, w, wa, wb, va, vb, f32, prods
+    torch.cuda.empty_cache()
+
+    # (d) model FLOPs of gemma2-2b FULL: one 128-token prefill at batch 1
+    full = flops_cfg or gemma2_2b.FULL
+    exact_ctx = NU.NumericsContext.from_ecfg(EulerConfig(mode="exact"),
+                                             backend="exact")
+    m = Model(full, numerics=exact_ctx, device=dev)
+    params = m.init(0)
+    ids = torch.randint(0, full.vocab, (1, 128), generator=gen, device=dev)
+
+    def prefill(model, ctx):
+        h, _ = model.forward(params, ids, ctx)
+        return model.head(params, h, ctx)
+
+    with torch.no_grad():
+        cost = CM.analyze(prefill, m, Ctx(numerics=exact_ctx))
+        cuda_ctx = NU.NumericsContext.from_ecfg(from_variant(16, "L-21b"),
+                                                backend="cuda")
+        mc = Model(full, numerics=cuda_ctx, device=dev)
+        secs = []
+        for _ in range(4):      # the first call is a warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(mc, Ctx(numerics=cuda_ctx))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    s = float(np.median(secs[1:]))
+    fl, tr = cost["dot_flops"], cost["dot_traffic"]
+    log(f"[flops] {card}: {full.name} prefill of 128 tokens (forward + "
+        f"head), counted on exact: dot_flops {fl:.6g}, dot_traffic {tr:.6g} "
+        f"B, ew_flops {cost['ew_flops']:.6g}, {cost['dots']} dots; on cuda "
+        f"L-21b median {s * 1e3:.2f} ms of {[round(t * 1e3, 2) for t in secs[1:]]}"
+        f": {fl / s / 1e12:.4g} TFLOP/s = {fl / s / FP16_FLOPS:.4%} of "
+        f"989 TFLOP/s (fp16) and {fl / s / FP32_FLOPS:.4%} of 67 TFLOP/s "
+        f"(f32); {tr / s / 1e12:.4g} TB/s = {tr / s / HBM_BYTES_PER_S:.4%} "
+        f"of 3.35 TB/s")
+    log("[flops] " + json.dumps({"card": card, "arch": full.name,
+                                 "tokens": 128, **cost, "cuda_s": secs}))
+    del m, mc, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: api_launches[k] + quire_launches[k] for k in api_launches}
+
+
+def dots_remat_step(dev, card: str, ecfg) -> None:
+    """Phase 3g's remat check on hymba-1.5b FULL: one L-21b gradient step
+    (batch 2 x seq 128, the launcher's first batch and initial state) under
+    remat policy "nothing", then under "dots"; the loss and every gradient
+    leaf bit-equal, each step's seconds and peak memory printed."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import hymba_1p5b
+    from repro_torch.data import SyntheticLM, batch_for_step
+    from repro_torch.launch.train import deterministic
+    from repro_torch.models.transformer import Model
+    from repro_torch.numerics import NumericsContext
+    cfg = hymba_1p5b.FULL
+    nctx = NumericsContext.from_ecfg(ecfg, backend="lax_ref")
+    params = Model(cfg, numerics=nctx, device=dev).init(0)
+    batch = batch_for_step(SyntheticLM(vocab=cfg.vocab, seed=0), 0, 2, 128,
+                           device=dev)
+    out = {}
+    with deterministic():
+        for policy in ("nothing", "dots"):
+            m = Model(cfg, numerics=nctx, remat_policy=policy, device=dev)
+            p = T.map(lambda t: t.detach().requires_grad_(True), params)
+            torch.cuda.synchronize(dev)
+            held = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            loss, _ = m.loss(p, batch, m.make_ctx())
+            grads = torch.autograd.grad(loss, T.leaves(p), allow_unused=True)
+            torch.cuda.synchronize(dev)
+            out[policy] = (loss.detach(), grads, time.perf_counter() - t0,
+                           torch.cuda.max_memory_allocated(dev) - held)
+            del p, m
+    (l0, g0, s0, m0), (l1, g1, s1, m1) = out["nothing"], out["dots"]
+    assert torch.equal(l0, l1), (float(l0), float(l1))
+    for i, (a, b) in enumerate(zip(g0, g1)):
+        assert (a is None) == (b is None), i
+        assert a is None or torch.equal(a, b), f"gradient leaf {i} differs"
+    log(f"[remat dots] {card}: hymba-1.5b FULL L-21b lax_ref, batch 2 x 128, "
+        f"one loss + gradient: loss {float(l0)!r} and all {len(g0)} "
+        f"gradient leaves bit-equal under 'dots' and 'nothing'; 'nothing' "
+        f"{s0:.2f} s, peak {m0 / 2**30:.2f} GiB above the params; 'dots' "
+        f"{s1:.2f} s, peak {m1 / 2**30:.2f} GiB")
+    del out, g0, g1, params
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -1497,6 +1788,8 @@ def main(argv=None) -> int:
     del rep, params, m
     gc.collect()
     torch.cuda.empty_cache()
+    # the same first step under remat policy "dots" beside "nothing"
+    dots_remat_step(dev, card, ecfg)
     # 4. the plain codec's memory: forward and backward of one [2304,
     # 25600] weight (gemma2's MLP shape, widened) at 256 tokens
     w = (torch.randn((2304, 25600), generator=gen, device=dev)
@@ -1760,6 +2053,24 @@ def main(argv=None) -> int:
     del eng, m, batcher, toks
     gc.collect()
     torch.cuda.empty_cache()
+
+    phase_start("3k")
+    # ---- phase 3k: the public numerics API and the paper's arithmetic ---
+    got = phase_numerics(dev, gen, card, path_launches, logmac_kernel)
+    assert got["posit_decode"] == 4 and got["logmac"] == 24, got
+    # the first two examples, each with its own assertions
+    from repro_torch.examples import mixed_precision, quickstart
+    _build.reset_launches()
+    qs = quickstart.run("cuda")
+    mp = mixed_precision.run("cuda")
+    torch.cuda.synchronize()
+    ex_launches = path_launches("examples")
+    for name in ("posit_encode", "posit_encode_prescaled", "logmac"):
+        assert ex_launches[name] > 0, f"{name} not launched by the examples"
+    log(f"[examples] {card}: quickstart kernel vs engine "
+        f"{qs['kernel_diff']:.3g}, lax_ref vs cuda {qs['api_diff']:.3g}; "
+        f"mixed_precision lax_ref vs cuda {mp['diff']:.3g} (< 1e-3), "
+        f"policy live {mp['live']:.3g}")
 
     phase_start("4")
     # ---- phase 4: timings ----------------------------------------------

@@ -5,15 +5,18 @@ regime bound, ILM stages n, truncation m, SIMD mode, framework knobs) and
 ``euler_dot_general``, the drop-in for ``lax.dot_general`` with JAX's
 dimension-number convention.  Modes: ``exact``, ``posit``, ``euler``,
 ``quant_only`` and ``logfxp`` (the paper's Table VI log-fixed-point
-baseline).
+baseline).  ``euler_matmul``, ``euler_einsum_qk`` and ``euler_einsum_pv``
+are ``euler_dot_general`` with the reference's dimension numbers.
 
 Gradients are straight-through: the forward sees the approximate value,
 ``x + (approx - x).detach()``; the rem plane carries no gradient.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import Any
 
 import torch
@@ -65,6 +68,15 @@ class EulerConfig:
                     (self.stages, self.trunc), f"L-n{self.stages}m{self.trunc}")
         return base + ("b" if self.bounded else "")
 
+    @property
+    def paper_name(self) -> str:
+        s = f"LP-{self.stages}"
+        if self.trunc is not None:
+            s += f"_T{self.trunc}"
+        if self.bounded:
+            s = f"b{_RBOUND[self.width]}_" + s
+        return s
+
     def replace(self, **kw) -> "EulerConfig":
         return dataclasses.replace(self, **kw)
 
@@ -89,6 +101,28 @@ EXACT = EulerConfig(mode="exact")
 # dot_general with JAX's dimension numbers
 # --------------------------------------------------------------------------
 
+_TLS = threading.local()
+
+
+def in_no_batch_dot() -> bool:
+    """Whether the aten op running now is the contraction of a dot with no
+    batch dimensions (``dot_general`` runs every dot as ``torch.bmm``, so
+    the op's name and shape cannot tell).  The remat policy ``"dots"``
+    saves exactly these outputs, as JAX's
+    ``dots_with_no_batch_dims_saveable`` does."""
+    return getattr(_TLS, "no_batch", False)
+
+
+@contextlib.contextmanager
+def no_batch_dot():
+    """Mark the contractions issued inside as dots with no batch dims."""
+    prev = in_no_batch_dot()
+    _TLS.no_batch = True
+    try:
+        yield
+    finally:
+        _TLS.no_batch = prev
+
 def dot_general(a: torch.Tensor, b: torch.Tensor, dimension_numbers,
                 out_dtype=torch.float32) -> torch.Tensor:
     """``lax.dot_general`` in torch, accumulated in float32.
@@ -108,7 +142,8 @@ def dot_general(a: torch.Tensor, b: torch.Tensor, dimension_numbers,
     K = math.prod(a.shape[d] for d in lc)
     a2 = a.permute(*lb, *a_free, *lc).reshape(nb, M, K).to(torch.float32)
     b2 = b.permute(*rb, *rc, *b_free).reshape(nb, K, N).to(torch.float32)
-    out = torch.bmm(a2, b2)
+    with no_batch_dot() if not lb else contextlib.nullcontext():
+        out = torch.bmm(a2, b2)
     return out.reshape(*batch_shape, *a_free_shape, *b_free_shape).to(out_dtype)
 
 
@@ -220,6 +255,27 @@ def euler_dot_general(a, b, dimension_numbers, cfg: EulerConfig):
                    out).to(out.dtype)
     return out.to(torch.promote_types(va.dtype, vb.dtype))
 
+
+def euler_matmul(a, b, cfg: EulerConfig):
+    """a @ b (contract a's last dim with b's first) under EULER numerics."""
+    dn = (((a.ndim - 1,), (0,)), ((), ()))
+    return euler_dot_general(a, b, dn, cfg)
+
+
+def euler_einsum_qk(q, k, cfg: EulerConfig):
+    """Attention scores q·k^T over the last dim: [..., T, D] x [..., S, D]."""
+    nd = q.ndim
+    batch = tuple(range(nd - 2))
+    dn = (((nd - 1,), (nd - 1,)), (batch, batch))
+    return euler_dot_general(q, k, dn, cfg)
+
+
+def euler_einsum_pv(p, v, cfg: EulerConfig):
+    """Attention values p·v: [..., T, S] x [..., S, D]."""
+    nd = p.ndim
+    batch = tuple(range(nd - 2))
+    dn = (((nd - 1,), (nd - 2,)), (batch, batch))
+    return euler_dot_general(p, v, dn, cfg)
 
 
 def ilm_elementwise(a, b, cfg: EulerConfig):

@@ -76,6 +76,15 @@ def ilm_planes_from_float(x, cfg: P.PositConfig, n: int, m: int | None,
                                   cfg.frac_window, n, m, sublane, dtype)
 
 
+def ilm_pair(a, b, cfg: P.PositConfig, n: int, m: int | None,
+             sublane: int | None = None):
+    """Elementwise ILM product of two float tensors through posit ``cfg``
+    (the paper's Table I operating points)."""
+    va, ra = ilm_planes_from_float(a, cfg, n, m, sublane)
+    vb, rb = ilm_planes_from_float(b, cfg, n, m, sublane)
+    return va * vb - ra * rb
+
+
 # --------------------------------------------------------------------------
 # Log-fixed-point baseline (paper Table VI "Log-fxp_n" rows)
 # --------------------------------------------------------------------------
@@ -116,3 +125,29 @@ def logfxp_planes(x, bits: int, n: int, frac_bits=None):
     val = sgn * mag.to(torch.float32) / scale
     rem = sgn * rem_mag.to(torch.float32) / scale
     return val, rem
+
+
+# --------------------------------------------------------------------------
+# Bit-exact integer oracle of the literal per-stage ILM (for tests)
+# --------------------------------------------------------------------------
+
+def np_ilm_exact(A: int, B: int, n: int) -> int:
+    """Literal n-stage iterative logarithmic multiplier on integers."""
+    A, B, out = int(A), int(B), 0
+    for _ in range(n):
+        if A == 0 or B == 0:
+            break
+        ka, kb = A.bit_length() - 1, B.bit_length() - 1
+        ra, rb = A - (1 << ka), B - (1 << kb)
+        out += (1 << (ka + kb)) + (ra << kb) + (rb << ka)
+        A, B = ra, rb
+    return out
+
+
+def np_clear_top_set_bits(x: int, k: int) -> int:
+    x = int(x)
+    for _ in range(k):
+        if x == 0:
+            break
+        x &= ~(1 << (x.bit_length() - 1))
+    return x

@@ -325,3 +325,91 @@ def to_storage(pat, cfg: PositConfig):
 def from_storage(arr, cfg: PositConfig):
     """Storage words -> int64 patterns masked to N bits."""
     return torch.as_tensor(arr).to(torch.int64) & mask(cfg.n_bits)
+
+
+# --------------------------------------------------------------------------
+# Pure-Python big-int reference codec (oracle for tests; exact for any width)
+# --------------------------------------------------------------------------
+
+def np_decode(pattern: int, cfg: PositConfig) -> float:
+    """Exact decode of one pattern with Python ints (NaR -> nan)."""
+    N, es = cfg.n_bits, cfg.es
+    p = int(pattern) & ((1 << N) - 1)
+    if p == 0:
+        return 0.0
+    if p == 1 << (N - 1):
+        return float("nan")
+    sign = p >> (N - 1)
+    body = ((1 << N) - p if sign else p) & ((1 << (N - 1)) - 1)
+    bits = [(body >> (N - 2 - i)) & 1 for i in range(N - 1)]
+    r0 = bits[0]
+    run = 0
+    for b in bits:
+        if b == r0 and run < cfg.rcap:
+            run += 1
+        else:
+            break
+    if run >= cfg.rcap:
+        rw, k = cfg.rcap, (cfg.rcap - 1 if r0 else -cfg.rcap)
+    else:
+        rw, k = run + 1, (run - 1 if r0 else -run)
+    rest = bits[rw:] + [0] * (es + 64)
+    e = 0
+    for i in range(es):
+        e = (e << 1) | rest[i]
+    W = N - 1 - es
+    frac = 0
+    for i in range(W):
+        frac = (frac << 1) | rest[es + i]
+    scale = k * (1 << es) + e
+    val = (1 + frac / (1 << W)) * (2.0 ** scale)
+    return -val if sign else val
+
+
+def np_encode(x: float, cfg: PositConfig) -> int:
+    """Exact reference encode using Python big ints (value-domain fields,
+    pattern-domain RNE like the tensor path)."""
+    import math
+
+    N, es = cfg.n_bits, cfg.es
+    if x == 0:
+        return 0
+    if not math.isfinite(x):
+        return 1 << (N - 1)
+    sign = x < 0
+    a = abs(x)
+    mant, ex = math.frexp(a)  # mant in [0.5, 1)
+    scale = ex - 1
+    mant *= 2.0
+    over, under = scale > cfg.max_scale, scale < cfg.min_scale
+    scale = min(max(scale, cfg.min_scale), cfg.max_scale)
+    if over or under:
+        mant = 1.0
+    k = scale >> es
+    e = scale - (k << es)
+    if cfg.bounded:
+        w = cfg.rcap if k in (cfg.k_max, cfg.k_min) else (k + 2 if k >= 0 else -k + 1)
+        if k >= 0:
+            rb = (1 << cfg.rcap) - 1 if k == cfg.k_max else (((1 << (k + 1)) - 1) << 1)
+        else:
+            rb = 0 if k == cfg.k_min else 1
+    else:
+        w = N - 1 if k == cfg.k_max else (k + 2 if k >= 0 else -k + 1)
+        rb = ((1 << (N - 1)) - 1) if k == cfg.k_max else ((((1 << (k + 1)) - 1) << 1) if k >= 0 else 1)
+    G = 56
+    frac_g = int(round((mant - 1.0) * (1 << G)))
+    T = (e << G) | frac_g
+    t = (N - 1) - w
+    sh = es + G - t
+    if sh > 0:
+        lsb = (T >> sh) & 1
+        T = (T + ((1 << (sh - 1)) - 1) + lsb) >> sh
+    elif sh < 0:
+        T <<= -sh
+    body = (rb << max(t, 0)) + T
+    body = min(max(body, 1), (1 << (N - 1)) - 1)
+    if over:
+        body = (1 << (N - 1)) - 1
+    if under:
+        body = 1
+    return ((1 << N) - body) & ((1 << N) - 1) if sign else body

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from repro_torch import numerics as N
 from repro_torch.core import posit as _P
 from repro_torch.core import xla_f32 as _X
-from repro_torch.core.engine import EulerConfig
+from repro_torch.core.engine import EulerConfig, no_batch_dot
 from repro_torch.numerics import NumericsContext
 
 _NEG = -1e30
@@ -400,7 +400,8 @@ def moe_route(xt, router_w, k: int):
     the softmax, its top ``k`` (ties to the lower expert id, as
     ``lax.top_k``) and the gates renormalised.  Returns (probabilities
     [n, E] f32, gates [n, k] at ``xt``'s dtype, ids [n, k] int64)."""
-    logits = xt.to(torch.float32) @ router_w
+    with no_batch_dot():   # a dot with no batch dims, as in the reference
+        logits = xt.to(torch.float32) @ router_w
     probs = _X.softmax(logits, dim=-1)
     # a stable descending sort keeps equal probabilities in id order
     ids = torch.sort(probs, dim=-1, descending=True,

@@ -24,21 +24,27 @@ it.
 Remat: under autograd, with no cache, each block and each loss chunk runs
 inside ``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
 reference's ``jax.checkpoint``: its activations are recomputed in the
-backward pass instead of kept.
+backward pass instead of kept.  Under ``remat_policy="dots"`` a block keeps
+the outputs of its contractions with no batch dimensions (JAX's
+``dots_with_no_batch_dims_saveable``) through a selective-checkpoint
+policy, and recomputes everything else (the planes, the straight-through
+sums, the attention's batched contractions).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import numerics as N
 from repro_torch.core import posit as _P
 from repro_torch.core import xla_f32 as _X
-from repro_torch.core.engine import EulerConfig
+from repro_torch.core.engine import EulerConfig, in_no_batch_dot
 from repro_torch.numerics import NumericsContext
 
 from . import layers as L
@@ -50,10 +56,21 @@ FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 _ATTN_MLP = ("dense", "audio", "vlm")
 
 # the reference's remat policies: "none" and "nothing" recompute every
-# activation (``jax.checkpoint``'s default policy saves nothing), and
-# "everything" saves them all, which is no remat; "dots" (save the
-# projections' outputs) has no port yet
+# activation (``jax.checkpoint``'s default policy saves nothing),
+# "everything" saves them all, which is no remat, and "dots" saves the
+# outputs of the contractions with no batch dimensions
 _REMAT_POLICIES = ("none", "nothing", "everything", "dots")
+
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+
+def save_no_batch_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: every contraction the engine marked as a dot
+    with no batch dims is saved (the engine runs each dot as ``bmm``, so
+    the mark, not the op, says which); all else is recomputed."""
+    if op in _DOT_OPS and in_no_batch_dot():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 _FLOAT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float16": torch.float16}
@@ -84,12 +101,9 @@ class Model:
                 f"{', '.join(FAMILIES)})")
         if remat_policy not in _REMAT_POLICIES:
             raise ValueError(f"unknown remat policy {remat_policy!r}")
-        if remat and remat_policy == "dots":
-            raise NotImplementedError(
-                "remat policy 'dots' is not ported yet (ROADMAP queue 1); "
-                "use 'nothing' or 'everything'")
         self.cfg = cfg
         self.remat = remat and remat_policy != "everything"
+        self.remat_policy = remat_policy
         if numerics is None:
             numerics = NumericsContext.from_ecfg(
                 ecfg or EulerConfig(mode="exact"))
@@ -244,6 +258,9 @@ class Model:
                                      device=x.device)
                 positions = dp.reshape(1) if dp.ndim == 0 else dp[:, None]
         remat = self._checkpointed(cache)
+        remat_kw = ({"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, save_no_batch_dots)}
+            if self.remat_policy == "dots" else {})
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, (p_l, win) in enumerate(zip(params["layers"],
                                            self.layer_windows())):
@@ -253,7 +270,7 @@ class Model:
                 x, a = checkpoint(
                     lambda p, h, w: self._block(p, h, ctx, w, positions,
                                                 None)[::2],
-                    p_l, x, win, use_reentrant=False)
+                    p_l, x, win, use_reentrant=False, **remat_kw)
             else:
                 x, _, a = self._block(p_l, x, ctx, win, positions, c_l)
             aux = aux + a

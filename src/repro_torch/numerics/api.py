@@ -1,10 +1,28 @@
 """The numerics entry point: context-scoped policy + backend.
 
 Counterpart of ``repro.numerics.api``.  Every matmul-shaped op funnels
-through ``dot_general`` / ``decode_attention`` here; each call resolves
-(active layer path, op kind) against the given context's
-:class:`PrecisionPolicy` and dispatches to its backend.  Layer paths come from ``scope(name)`` context managers in
-the model code ("attn", "mlp", "head"); they nest with "/".
+through the module-level ops here (``dot_general``, ``matmul``, ``qk``,
+``pv``, ``elementwise``, ``decode_attention``); each call resolves (active
+layer path, op kind) against the active :class:`PrecisionPolicy` and
+dispatches to the active backend:
+
+    policy = (PrecisionPolicy.uniform(from_variant(16, "L-21b"))
+              .with_rule("*attn*", from_variant(8, "L-21b"))
+              .with_rule("*head*", EulerConfig(mode="exact")))
+    with numerics.use(policy, backend="cuda"):
+        y = numerics.matmul(x, w)
+
+Two resolution routes:
+
+  * ambient: ``use(...)`` pushes a :class:`NumericsContext` on a
+    thread-local stack; an op given no context reads its top (``DEFAULT``,
+    exact numerics on ``lax_ref``, when the stack is empty).
+  * explicit: pass a ``NumericsContext`` to the op.  The models do this
+    through ``models.layers.Ctx``, so serving and training never read the
+    ambient context.
+
+Layer paths come from ``scope(name)`` context managers in the model code
+("attn", "mlp", "head"); they nest with "/".
 """
 from __future__ import annotations
 
@@ -55,14 +73,46 @@ def _scope_stack() -> list:
     return _TLS.scope
 
 
+def _ctx_stack() -> list:
+    if not hasattr(_TLS, "ctx"):
+        _TLS.ctx = []
+    return _TLS.ctx
+
+
 def current() -> NumericsContext:
-    """The context an op given none runs under (exact numerics on
-    ``lax_ref``; models pass theirs explicitly through ``Ctx``)."""
-    return DEFAULT
+    """The active ambient context (``DEFAULT`` = exact/lax_ref outside any
+    ``use(...)`` block on this thread)."""
+    stack = _ctx_stack()
+    return stack[-1] if stack else DEFAULT
 
 
 def current_path() -> str:
     return "/".join(_scope_stack())
+
+
+@contextlib.contextmanager
+def use(policy_or_ctx, backend: str | None = None):
+    """Activate a policy or context on this thread for the ``with`` block.
+
+    Accepts a ``NumericsContext``, a ``PrecisionPolicy``, or a bare
+    ``EulerConfig`` (a uniform policy).  ``backend`` overrides the
+    context's backend when given."""
+    if isinstance(policy_or_ctx, NumericsContext):
+        ctx = policy_or_ctx
+    elif isinstance(policy_or_ctx, PrecisionPolicy):
+        ctx = NumericsContext(policy=policy_or_ctx)
+    elif isinstance(policy_or_ctx, EulerConfig):
+        ctx = NumericsContext.from_ecfg(policy_or_ctx)
+    else:
+        raise TypeError(f"cannot activate {type(policy_or_ctx).__name__}")
+    if backend is not None:
+        ctx = dataclasses.replace(ctx, backend=backend)
+    stack = _ctx_stack()
+    stack.append(ctx)
+    try:
+        yield ctx
+    finally:
+        stack.pop()
 
 
 @contextlib.contextmanager
@@ -148,6 +198,32 @@ def dot_general(a, b, dimension_numbers, ctx: NumericsContext | None = None,
     policy/backend; ``op`` tags the call for policy resolution."""
     backend, cfg = _dispatch(op, ctx, path)
     return backend.dot_general(a, b, dimension_numbers, cfg)
+
+
+def matmul(a, b, ctx: NumericsContext | None = None, *,
+           path: str | None = None):
+    """a @ b (contract a's last dim with b's first) under the active policy."""
+    backend, cfg = _dispatch("matmul", ctx, path)
+    return backend.matmul(a, b, cfg)
+
+
+def qk(q, k, ctx: NumericsContext | None = None, *, path: str | None = None):
+    """Attention scores q·k^T over the last dim: [..., T, D] x [..., S, D]."""
+    backend, cfg = _dispatch("qk", ctx, path)
+    return backend.qk(q, k, cfg)
+
+
+def pv(p, v, ctx: NumericsContext | None = None, *, path: str | None = None):
+    """Attention values p·v: [..., T, S] x [..., S, D]."""
+    backend, cfg = _dispatch("pv", ctx, path)
+    return backend.pv(p, v, cfg)
+
+
+def elementwise(a, b, ctx: NumericsContext | None = None, *,
+                path: str | None = None):
+    """Elementwise EULER product (SSD state-update path)."""
+    backend, cfg = _dispatch("elementwise", ctx, path)
+    return backend.elementwise(a, b, cfg)
 
 
 def decode_attention(q, k_pages, v_pages, page_table, pos,

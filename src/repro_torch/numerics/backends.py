@@ -310,6 +310,10 @@ def get_backend(name: "str | Backend") -> Backend:
                        f"available: {sorted(_BACKENDS)}") from None
 
 
+def available_backends() -> tuple[str, ...]:
+    return tuple(sorted(_BACKENDS))
+
+
 register_backend("exact", ExactBackend())
 register_backend("lax_ref", LaxRefBackend())
 register_backend("cuda", CudaBackend())

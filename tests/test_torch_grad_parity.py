@@ -10,7 +10,8 @@ Bars, stated before the first run:
     (1.06e-3) and the 4-layer hybrid (1.91e-3) still miss it and have no
     test here: their remaining error and its sources are in ROADMAP queue 3
     (JAX's own eager run differs from its jit run by 1.19e-3 and 5.43e-3
-    there; run this file as a script for these numbers);
+    there; run this file as a script for these numbers); the CFG also
+    under remat policy "dots" against JAX's "dots";
   * each transcribed function: XLA's bits exactly, forward and vjp, on
     2^16 values (the model's range and random bit patterns); rsqrt, which
     refines the host CPU's ``rsqrtps`` table and is not transcribed, within
@@ -70,6 +71,35 @@ def test_whole_model_l21b_grads_match_jax(arch):
         w = wl.double()
         err = float((gl.double() - w).norm() / w.norm())
         assert err <= GRAD_REL_L2, (arch, i, tuple(w.shape), err)
+
+
+def test_cfg_l21b_grads_under_dots_remat_match_jax():
+    """The CFG under remat policy "dots" (the port saves the no-batch
+    contractions' outputs through a selective-checkpoint policy) against
+    ``jax.grad`` of the JAX model under "dots"."""
+    jc = JConfig(**CFG)
+    jp = JModel(jc).init(jax.random.PRNGKey(0))
+    b = {k: np.asarray(v)
+         for k, v in JData(vocab=jc.vocab, seed=3).batch(0, 2, 64).items()}
+    jm = JModel(jc, JE.from_variant(16, "L-21b"), remat_policy="dots")
+    _, g = jax.jit(jax.value_and_grad(
+        lambda p: jm.loss(p, b, jm.make_ctx()), has_aux=True))(jp)
+    want = T.leaves(params_from_jax(jax.tree.map(np.asarray, g), jc,
+                                    device="cpu"))
+    tc = ARCHS["cfg"][1]
+    tm = TModel(tc, TE.from_variant(16, "L-21b"), remat_policy="dots",
+                device="cpu")
+    tp = T.map(lambda p: p.detach().clone().requires_grad_(True),
+               params_from_jax(jax.tree.map(np.asarray, jp), tc,
+                               device="cpu"))
+    loss, _ = tm.loss(tp, {k: torch.from_numpy(v.astype(np.int64))
+                           for k, v in b.items()}, tm.make_ctx())
+    got = torch.autograd.grad(loss, T.leaves(tp))
+    assert len(got) == len(want)
+    for i, (gl, wl) in enumerate(zip(got, want)):
+        w = wl.double()
+        err = float((gl.double() - w).norm() / w.norm())
+        assert err <= GRAD_REL_L2, (i, tuple(w.shape), err)
 
 
 def _inputs(kind: str) -> np.ndarray:
