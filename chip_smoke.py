@@ -135,6 +135,29 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    ``exact``, over the median time of the same prefill on ``cuda``, as
    shares of the card's peaks (a report); then the ``quickstart`` and
    ``mixed_precision`` examples on the card, each with its assertions;
+3l. the multi-device path on the one card: gloo ranks (NCCL refuses two
+   ranks on one GPU), each computing on cuda:0 under ``pin_exact_f32``
+   and ``deterministic()``, spawned after phase 1 built the kernels.
+   (a) ``compressed_psum``/``compressed_pmean`` over 4 ranks on CUDA
+   tensors, bit-equal to the same calls on CPU tensors and within 0.02 of
+   the exact sum; (b) gemma2-2b FULL's forward + head on ``cuda``, a
+   ``DP_BATCH`` batch split 2 + 2 over a 2-rank data mesh (rank 0's
+   parameters broadcast): every pre-scale (the fused encode's split
+   entry, the reference engine's) bit-equal to the parent's one-process
+   forward's, every logmac launch within its per-element bound of the
+   plain version, the logits' max |diff| and argmax agreement reported;
+   (c) one data-parallel train step of hymba-1.5b at full width, cut to
+   ``HYMBA_DP_LAYERS`` layers, on ``lax_ref``, global batch 2 x 128 over 2
+   ranks, the two rows taking different local pre-scales: every pre-scale
+   of the step bit-equal to rank 0's one-process step on the whole batch;
+   the loss within 1e-6 and every gradient leaf within relative L2 1e-3
+   of rank 0's one-process step as two 128-row micro-batches (the ranks'
+   product shapes) with those pre-scales; the distance from the
+   whole-batch step, s/step and the peak a rank printed; (d) one llama4-scout MoE block at full width on [4, 128]
+   tokens: expert parallel on (1, 2) bit-identical to the one-process
+   block without pre-scale (its max |diff| under P16 L-21b reported), on
+   (2, 2) ``moe_fsdp``'s f32 ZeRO-3 gather bit-identical to the run
+   without it, the bfloat16 gather's diff and bytes reported;
 4. each kernel timed with CUDA events (L2 flushed before every launch)
    beside its plain version, with the least time the card could take:
    ``ms`` with the host's issue of the call inside the window, as every
@@ -161,7 +184,8 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
 Launch counts are reset just before each path (3, 3b, 3c, 3d, the four
 drains of 3e, each model of 3f, the eval step of 3g, the drains of 3h and
 3i, 3i's frame prefill, 3j's generate and drain, each ``numerics.matmul``,
-the quire and the two examples of 3k) and read just after;
+the quire and the two examples of 3k, 3l's forward in each data rank)
+and read just after;
 each path asserts
 the kernels it launches, and the ``launches`` of the kernels line sum
 the paths.  ``--profile`` also
@@ -171,6 +195,7 @@ is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import gc
 import json
@@ -732,6 +757,588 @@ def dots_remat_step(dev, card: str, ecfg) -> None:
     del out, g0, g1, params
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---- phase 3l: the multi-device path on one card --------------------------
+# NCCL refuses two ranks on one GPU, so the ranks are gloo processes, each
+# computing on cuda:0 (gloo of the card's PyTorch takes CUDA tensors for
+# every collective the port issues, so the port stages nothing itself;
+# gloo copies them through host memory inside each collective).  The parent builds the kernels (phase 1) before any rank
+# starts.  (a) the compressed all-reduce over 4 ranks; (b) gemma2-2b FULL
+# forward on `cuda`, DP_BATCH split over 2 data ranks, against the
+# parent's one-process forward; (c) a data-parallel train step of
+# hymba-1.5b at full width, cut to HYMBA_DP_LAYERS, on `lax_ref`, against
+# the one-process step; (d) one llama4-scout MoE block at full width,
+# expert parallel on (data, model) = (1, 2) and (2, 2), the ZeRO-3 gather.
+DP_BATCH = (4, 128)
+# (c)'s depth: hymba-1.5b holds about 48 M parameters a layer, 20 bytes
+# each in a step (parameters, gradients, AdamW's two moments, the new
+# parameters).  At 16 layers a rank peaked at 27.92 GiB, rank 0's
+# one-process references included (PERF.md, 3l): about 1.6 GiB a layer,
+# so two ranks of 20 layers take about 69 of the card's 79 GiB and 24
+# would not fit
+HYMBA_DP_LAYERS = 20
+EP_TOKENS = (4, 128)
+RANKS_DIR = os.path.join(HERE, "build", "chip_smoke_ranks")
+
+
+def _rank_entry(rank, world, store, fn, args, out_dir):
+    """One gloo rank on cuda:0: exact f32, deterministic, ``fn``'s result
+    saved for the parent."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import pin_exact_f32
+    from repro_torch.launch.train import deterministic
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    pin_exact_f32()
+    try:
+        with deterministic():
+            out = fn(rank, world, *args)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, world: int, *args) -> list:
+    """``fn(rank, world, *args)`` on ``world`` gloo ranks on the card; the
+    ranks' results in rank order.  The processes end with the call."""
+    import torch
+    import torch.multiprocessing as mp
+    shutil.rmtree(RANKS_DIR, ignore_errors=True)
+    os.makedirs(RANKS_DIR)
+    try:
+        mp.spawn(_rank_entry, args=(world, os.path.join(RANKS_DIR, "store"),
+                                    fn, args, RANKS_DIR),
+                 nprocs=world, join=True)
+        return [torch.load(os.path.join(RANKS_DIR, f"rank{r}.pt"),
+                           weights_only=False) for r in range(world)]
+    finally:
+        shutil.rmtree(RANKS_DIR, ignore_errors=True)
+
+
+def _free():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _l21b(backend: str, **kw):
+    from repro_torch.core.engine import from_variant
+    from repro_torch.numerics import NumericsContext
+    return NumericsContext.from_ecfg(from_variant(16, "L-21b", **kw),
+                                     backend=backend)
+
+
+class _Checks(list):
+    """Each logmac launch's max |diff| from its plain version; ``split``
+    counts the split encodes held against theirs."""
+
+    def __init__(self):
+        super().__init__()
+        self.split = []
+
+
+def recording(bound_checks: _Checks | None = None, moved: list | None = None):
+    """A context that records every pow2 pre-scale, [(kind, scale)] in
+    call order (the fused encode's ``s`` and the reference engine's), and
+    with ``bound_checks`` holds each logmac launch against its plain
+    version within the per-element bound, appending the max |diff|, and
+    each split encode (an operand whose rows are split over a group)
+    against its plain version bit for bit.  With ``moved``, appends for
+    each engine pre-scale taken over a group whether the rank's own rows
+    alone would give another."""
+    import torch
+    from repro_torch.core import engine as E
+    from repro_torch.kernels import logmac as LM
+    from repro_torch.kernels import posit_codec as PC
+
+    split_checked = [] if bound_checks is None else bound_checks.split
+
+    @contextlib.contextmanager
+    def ctx():
+        rec = []
+        enc, p2, lm = PC.posit_encode_prescaled, E._pow2_scale, LM.logmac
+
+        def enc_spy(x, pc, pre_scale=True, group=None):
+            w, s = enc(x, pc, pre_scale, group)
+            rec.append(("encode", float(s)))
+            if bound_checks is not None and group is not None:
+                # the split entry against its plain version, same group
+                s2 = p2(x, group)
+                assert float(s2) == float(s), "split encode's scale"
+                assert torch.equal(PC.encode_plain(x / s2, pc), w), \
+                    "split encode's words"
+                split_checked.append(1)
+            return w, s
+
+        def p2_spy(x, group=None):
+            s = p2(x, group)
+            rec.append(("engine", float(s)))
+            if moved is not None and group is not None:
+                moved.append(float(p2(x)) != float(s))
+            return s
+
+        def lm_spy(a, b, ecfg):
+            out = lm(a, b, ecfg)
+            worst = 0.0
+            va, ra = LM.decode_planes(a, ecfg)
+            for c0 in range(0, b.shape[1], 16384):
+                bc = b[:, c0:c0 + 16384]
+                vb, rb = LM.decode_planes(bc, ecfg)
+                want = LM.logmac_plain(a, bc, ecfg)
+                bound = (1e-5 * (va.abs() @ vb.abs() + ra.abs() @ rb.abs())
+                         + 1e-4)
+                diff = (out[:, c0:c0 + 16384] - want).abs()
+                assert bool((diff <= bound).all()), "logmac outside bound"
+                worst = max(worst, float(diff.max()))
+            bound_checks.append(worst)
+            return out
+
+        PC.posit_encode_prescaled, E._pow2_scale = enc_spy, p2_spy
+        if bound_checks is not None:
+            LM.logmac = lm_spy
+        try:
+            yield rec
+        finally:
+            PC.posit_encode_prescaled, E._pow2_scale, LM.logmac = enc, p2, lm
+    return ctx()
+
+
+@contextlib.contextmanager
+def replaying(rec):
+    """The reference engine's pow2 pre-scales taken from ``rec`` (a
+    :func:`recording` of the same code path, in call order), each once,
+    in place of the operands' own."""
+    import torch
+    from repro_torch.core import engine as E
+    p2, used = E._pow2_scale, [0]
+
+    def replay(x, group=None):
+        assert group is None and used[0] < len(rec), "more pre-scales"
+        kind, s = rec[used[0]]
+        assert kind == "engine"
+        used[0] += 1
+        return torch.tensor(s, dtype=torch.float32, device=x.device)
+    E._pow2_scale = replay
+    try:
+        yield
+    finally:
+        E._pow2_scale = p2
+    assert used[0] == len(rec), "fewer pre-scales than recorded"
+
+
+def gemma_forward(model, params, ids, ctx, bound_checks=None):
+    """(logits, pre-scales, launches) of one no-grad forward + head."""
+    import torch
+    from repro_torch.kernels import _build
+    _build.reset_launches()
+    with torch.no_grad(), recording(bound_checks) as rec:
+        hidden, _ = model.forward(params, ids, ctx)
+        logits = model.head(params, hidden, ctx)
+    torch.cuda.synchronize()
+    return logits, rec, dict(_build.LAUNCHES)
+
+
+def compressed_rank(rank, world):
+    """(a): this rank's row through compressed_psum/pmean on the card and
+    on the CPU (same group), and the exact sum."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives as C
+    x = np.random.default_rng(0).normal(size=(world, 4100)).astype(
+        np.float32)
+    g = dist.group.WORLD
+    out = {}
+    for name, fn in (("psum", C.compressed_psum),
+                     ("pmean", C.compressed_pmean)):
+        xl = torch.from_numpy(x[rank:rank + 1])
+        got = fn(xl.cuda(), g)
+        cpu = fn(xl, g)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), cpu), f"{name}: card != CPU"
+        exact = x.sum(0, keepdims=True) / (world if name == "pmean" else 1)
+        rel = float(np.abs(got.cpu().numpy() - exact).max()
+                    / (np.abs(exact).max() + 1e-9))
+        assert rel < 0.02, (name, rel)
+        out[name] = rel
+    return out
+
+
+def ranks_of_two(rank, world, ids_np, ep_x_seed):
+    """(b), (c) and (d) on (1, 2) in one pair of ranks, one after the
+    other, each freeing the card before the next."""
+    out = {"b": dp_forward_rank(rank, ids_np)}
+    _free()
+    out["c"] = dp_train_rank(rank)
+    _free()
+    out["d"] = ep_rank(rank, (1, 2), {"pre": ({}, {}),
+                                      "nopre": ({"pre_scale": False}, {})},
+                       ep_x_seed)
+    return out
+
+
+def ranks_of_four(rank, world, ep_x_seed):
+    import torch
+    out = {"a": compressed_rank(rank, world)}
+    out["d"] = ep_rank(rank, (2, 2), {
+        "ep": ({}, {}), "fsdp": ({}, {"moe_fsdp": True}),
+        "fsdp_bf16": ({}, {"moe_fsdp": True,
+                           "moe_gather_dtype": torch.bfloat16})}, ep_x_seed)
+    return out
+
+
+def dp_forward_rank(rank, ids_np):
+    """(b): gemma2-2b FULL on `cuda` over a 2-rank data mesh, rank 0's
+    parameters broadcast (rank 1 draws others first)."""
+    import torch
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.transformer import Model
+    from repro_torch.training import rank_rows
+    model = Model(gemma2_2b.FULL, numerics=_l21b("cuda"), device="cuda")
+    params = model.init(rank)
+    mesh = make_mesh((2,), ("data",))
+    ctx = Ctx(numerics=model.numerics, mesh=mesh)
+    C.reset_bytes()
+    t0 = time.perf_counter()
+    C.broadcast_tree(params)
+    torch.cuda.synchronize()
+    bcast_s = time.perf_counter() - t0
+    ids = rank_rows({"ids": torch.from_numpy(ids_np).cuda()}, ctx)["ids"]
+    C.reset_bytes()
+    checks = _Checks()
+    t0 = time.perf_counter()
+    logits, rec, launches = gemma_forward(model, params, ids, ctx, checks)
+    return {"logits": logits.cpu(), "scales": rec, "launches": launches,
+            "bound_checks": len(checks), "worst": max(checks),
+            "split_checked": len(checks.split),
+            "bytes": dict(C.BYTES), "bcast_s": bcast_s,
+            "forward_s": time.perf_counter() - t0,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def spiky_rows(params, batch, vocab: int) -> dict:
+    """``batch`` with row 0 on the lower half of the vocabulary and row 1
+    on the upper half, whose embedding rows (changed in place) keep 4 of
+    d values and shrink the rest by 2^-12: after the norms the two rows'
+    activations take different local pre-scales, as in
+    ``tests/test_torch_dp_train.py``."""
+    import torch
+    half = vocab // 2
+    with torch.no_grad():
+        params["embed"]["e"][half:, 4:] *= 2.0 ** -12
+    out = {}
+    for k, v in batch.items():
+        v = v % half
+        v[1:] += half
+        out[k] = v
+    return out
+
+
+def dp_train_rank(rank):
+    """(c): hymba-1.5b at full width, HYMBA_DP_LAYERS deep, one data-
+    parallel step on `lax_ref` over 2 ranks, each holding one row of a
+    :func:`spiky_rows` batch; rank 0 then takes the one-process loss and
+    gradients of the global batch, whole and as two micro-batches of the
+    ranks' rows."""
+    import dataclasses
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import hymba_1p5b
+    from repro_torch.data import SyntheticLM, batch_for_step
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import AdamW
+    from repro_torch.training import (broadcast_state, init_state,
+                                      make_train_step, rank_rows, sync_grads)
+    cfg = dataclasses.replace(hymba_1p5b.FULL, n_layers=HYMBA_DP_LAYERS)
+    model = Model(cfg, numerics=_l21b("lax_ref"), device="cuda")
+    opt = AdamW(lr=1e-4, weight_decay=0.01)
+    mesh = make_mesh((2,), ("data",))
+    ctx = Ctx(numerics=model.numerics, mesh=mesh)
+    state = broadcast_state(init_state(model, opt, rank))
+    batch = spiky_rows(state.params, batch_for_step(
+        SyntheticLM(vocab=cfg.vocab, seed=0), 0, 2, 128, device="cuda"),
+        cfg.vocab)
+    local = rank_rows(batch, ctx)
+    torch.cuda.reset_peak_memory_stats()
+    C.reset_bytes()
+    leaves = T.leaves(state.params)
+    moved = []
+    # the forward's pre-scales and those of remat's recomputation
+    with recording(moved=moved) as scales:
+        loss, _ = model.loss(state.params, local, ctx)
+        grads = torch.autograd.grad(loss, leaves)
+    grads = T.leaves(sync_grads(T.unflatten(state.params, list(grads)),
+                                ctx))
+    grad_bytes = dict(C.BYTES)
+    step_fn = make_train_step(model, opt, ctx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, metrics = step_fn(state, local)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    out = {"loss": float(loss.detach()),
+           "step_loss": float(metrics["loss"]), "scales": scales,
+           "moved": sum(moved), "step_s": step_s,
+           "peak": torch.cuda.max_memory_allocated(),
+           "grad_bytes": grad_bytes, "leaves": len(leaves)}
+    del new, metrics
+    if rank != 0:
+        return out
+    one = Ctx(numerics=model.numerics)
+
+    def rel(g, w):
+        return float((g.double() - w.double()).norm()
+                     / max(float(w.double().norm()), 1e-30))
+    # the one-process step on the whole batch: products of 256 rows
+    with recording() as whole_scales:
+        whole_loss, _ = model.loss(state.params, batch, one)
+        whole = torch.autograd.grad(whole_loss, leaves)
+    out["whole_scales"] = whole_scales
+    out["whole_loss"] = float(whole_loss.detach())
+    out["whole_rels"] = [rel(g, w) for g, w in zip(grads, whole)]
+    del whole
+    # the one-process step as two micro-batches of 128 rows (the ranks'
+    # product shapes), grad_accum's sum and mean, each micro-batch with
+    # the whole batch's pre-scales, which the ranks take over the group
+    acc = [torch.zeros_like(p) for p in leaves]
+    acc_loss = torch.zeros((), device="cuda")
+    for i in range(2):
+        with replaying(scales):
+            mb_loss, _ = model.loss(state.params,
+                                    {k: v[i:i + 1] for k, v in batch.items()},
+                                    one)
+            mb = torch.autograd.grad(mb_loss, leaves)
+        acc = [a + g for a, g in zip(acc, mb)]
+        acc_loss = acc_loss + mb_loss.detach()
+        del mb
+    out["ref_loss"] = float(acc_loss / 2)
+    out["rels"] = [rel(g, a / 2) for g, a in zip(grads, acc)]
+    out["paths"] = [T.keystr(pth) for pth, _ in
+                    T.leaves_with_path(state.params)]
+    out["ref_peak"] = torch.cuda.max_memory_allocated()
+    # cuBLAS's f32 product of 128 rows against the first 128 of 256
+    a = torch.randn((1, 256, cfg.d_model), device="cuda")
+    w = torch.randn((1, cfg.d_model, cfg.d_ff), device="cuda")
+    out["rows_equal"] = bool(torch.equal(torch.bmm(a[:, :128], w),
+                                         torch.bmm(a, w)[:, :128]))
+    return out
+
+
+def ep_block(seed: int):
+    """One llama4-scout MoE block's parameters and tokens at full width,
+    drawn on the card from ``seed``."""
+    import torch
+    from repro_torch.configs import llama4_scout_17b_a16e as L4
+    from repro_torch.models.layers import moe_init
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    p = moe_init(gen, L4.FULL, "cuda")
+    x = torch.randn(EP_TOKENS + (L4.FULL.d_model,), generator=gen,
+                    device="cuda")
+    return p, x
+
+
+def ep_rank(rank, shape, runs, seed):
+    """(d): the block expert parallel on a (data, model) mesh of
+    ``shape``, per run (numerics knobs, Ctx knobs): this rank's output
+    rows, aux, the collectives' bytes and seconds."""
+    import torch
+    from repro_torch.configs import llama4_scout_17b_a16e as L4
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import Ctx, moe_apply
+    from repro_torch.training import rank_rows
+    p, x = ep_block(seed)
+    # every rank holds the whole tree, as the launcher places it; the
+    # expert stacks (8.05 GB) in host memory, so four ranks fit the card:
+    # the block copies its own experts over
+    for n in ("wi", "wg", "wo"):
+        p[n]["w"] = p[n]["w"].cpu()
+    _free()
+    mesh = make_mesh(shape, ("data", "model"))
+    out = {}
+    for name, (nkw, ckw) in runs.items():
+        ctx = Ctx(numerics=_l21b("cuda", **nkw), mesh=mesh, **ckw)
+        xl = rank_rows({"x": x}, ctx)["x"]
+        C.reset_bytes()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            y, aux = moe_apply(p, xl, ctx, L4.FULL)
+        torch.cuda.synchronize()
+        out[name] = {"y": y.cpu(), "aux": float(aux),
+                     "bytes": dict(C.BYTES),
+                     "s": time.perf_counter() - t0,
+                     "peak": torch.cuda.max_memory_allocated()}
+        del y
+        _free()
+    return out
+
+
+def phase_multi_device(card: str, path_launches) -> dict:
+    """Phase 3l; returns the launches the ranks' driven paths made."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import gemma2_2b, llama4_scout_17b_a16e as L4
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels import _build
+    from repro_torch.models.layers import Ctx, moe_apply
+    from repro_torch.models.transformer import Model
+    from repro_torch.launch.mesh import HW
+    log(f"[multi-device] {card}: HW {dict(HW, hbm_bytes=HW['hbm_bytes'])}")
+    seed = 7
+    ids = np.random.default_rng(0).integers(
+        0, gemma2_2b.FULL.vocab, size=DP_BATCH).astype(np.int64)
+    # the one-process references, before any rank holds the card
+    model = Model(gemma2_2b.FULL, numerics=_l21b("cuda"), device="cuda")
+    params = model.init(0)
+    ref_logits, ref_scales, ref_launch = gemma_forward(
+        model, params, torch.from_numpy(ids).cuda(), Ctx(
+            numerics=model.numerics))
+    ref_logits = ref_logits.cpu()
+    del model, params
+    _free()
+    p, x = ep_block(seed)
+    ep_ref = {}
+    for name, kw in (("pre", {}), ("nopre", {"pre_scale": False})):
+        with torch.no_grad():
+            y, aux = moe_apply(p, x, Ctx(numerics=_l21b("cuda", **kw)),
+                               L4.FULL)
+        ep_ref[name] = (y.cpu(), float(aux))
+    del p, x, y
+    _free()
+
+    t0 = time.perf_counter()
+    two = run_ranks(ranks_of_two, 2, ids, seed)
+    t_two = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    four = run_ranks(ranks_of_four, 4, seed)
+    t_four = time.perf_counter() - t0
+
+    # (a)
+    log(f"[multi-device a] {card}: compressed_psum / pmean over 4 gloo "
+        f"ranks on CUDA tensors bit-equal to the same calls on CPU tensors;"
+        f" relative error against the exact sum (bar 0.02): "
+        f"{[round(r['a']['psum'], 6) for r in four]} / "
+        f"{[round(r['a']['pmean'], 6) for r in four]}")
+    # (b)
+    launches = dict.fromkeys(_build.LAUNCHES, 0)
+    b = [r["b"] for r in two]
+    vocab = gemma2_2b.FULL.vocab
+    got = torch.cat([r["logits"] for r in b])
+    for r in b:
+        assert r["scales"] == ref_scales, "a data rank's pre-scale differs"
+        for k, v in r["launches"].items():
+            launches[k] += v
+        assert r["launches"]["posit_encode_prescaled"] > 0
+        assert r["launches"]["logmac"] > 0
+        assert r["split_checked"] > 0
+    diff = float((got - ref_logits).abs().max())
+    agree = float((got[..., :vocab].argmax(-1)
+                   == ref_logits[..., :vocab].argmax(-1)).float().mean())
+    kinds = {k: sum(1 for kk, _ in ref_scales if kk == k)
+             for k in ("encode", "engine")}
+    log(f"[multi-device b] {card}: gemma2-2b FULL forward on cuda, batch "
+        f"{DP_BATCH} split 2 + 2 over 2 data ranks: {len(ref_scales)} "
+        f"pre-scales ({kinds['encode']} fused encodes, {kinds['engine']} "
+        f"on the reference engine) bit-equal to the one-process forward's;"
+        f" {b[0]['bound_checks']} logmac contractions a rank within the "
+        f"per-element bound (max |diff| {max(r['worst'] for r in b):.3g}),"
+        f" {b[0]['split_checked']} split encodes a rank (scale and words) "
+        f"bit-equal to their plain version over the group;"
+        f" logits max |diff| {diff:.4g}, argmax agreement {agree:.4f} over "
+        f"26 layers; rank 0's launches {b[0]['launches']}, one-process "
+        f"{ref_launch}; collective bytes a rank {b[0]['bytes']}; "
+        f"broadcast of the parameters {b[0]['bcast_s']:.2f} s; forward "
+        f"(with the checks) {[round(r['forward_s'], 2) for r in b]} s; "
+        f"peak {[round(r['peak'] / 2**30, 2) for r in b]} GiB")
+    # (c)
+    c = [r["c"] for r in two]
+    c0 = c[0]
+    assert c0["loss"] == c[1]["loss"], "the ranks' global losses differ"
+    assert c0["scales"] == c[1]["scales"], "the ranks' pre-scales differ"
+    assert c0["scales"] == c0["whole_scales"], \
+        "a data rank's pre-scale differs from the whole batch's"
+    moved = [r["moved"] for r in c]
+    assert sum(moved) > 0, "no operand's local pre-scale differs"
+    # the bars where the products have the ranks' shapes: cuBLAS's f32
+    # order depends on the row count (rows_equal), and hymba's bfloat16
+    # activations turn a last-bit difference into a bf16 ulp
+    rel_loss = abs(c0["loss"] - c0["ref_loss"]) / abs(c0["ref_loss"])
+    worst = max(c0["rels"])
+    whole_loss = abs(c0["loss"] - c0["whole_loss"]) / abs(c0["whole_loss"])
+    order = sorted(range(len(c0["rels"])), key=lambda i: -c0["whole_rels"][i])
+    log(f"[multi-device c] worst gradient leaves against the whole-batch "
+        f"step (relative L2): " + "; ".join(
+            f"{c0['paths'][i]} {c0['whole_rels'][i]:.3g}" for i in order[:6])
+        + f"; median {sorted(c0['whole_rels'])[len(order) // 2]:.3g}")
+    log(f"[multi-device c] {card}: hymba-1.5b at full width, "
+        f"{HYMBA_DP_LAYERS} of 32 layers, lax_ref, global batch 2 x 128 "
+        f"over 2 data ranks, the rows on spiky embeddings: "
+        f"{len(c0['scales'])} pre-scales a rank (forward and remat) "
+        f"bit-equal to the one-process whole batch's, {moved} a rank "
+        f"where the rank's rows alone give another; against the "
+        f"one-process step as two 128-row micro-batches: loss "
+        f"{c0['loss']!r} against {c0['ref_loss']!r} (relative "
+        f"{rel_loss:.3g}, bar 1e-06), {c0['leaves']} gradient leaves, max "
+        f"relative L2 {worst:.3g} (bar 0.001); against the whole-batch "
+        f"step (256-row products; cuBLAS's product of 128 rows equal to "
+        f"the first 128 of 256: {c0['rows_equal']}): loss relative "
+        f"{whole_loss:.3g}, max leaf {max(c0['whole_rels']):.3g}; step "
+        f"{[round(r['step_s'], 2) for r in c]} s/step, peak "
+        f"{[round(r['peak'] / 2**30, 2) for r in c]} GiB a rank (rank 0 "
+        f"with the references {c0['ref_peak'] / 2**30:.2f}); gradient "
+        f"all-reduce bytes a rank {c0['grad_bytes']}")
+    checks_c = [(rel_loss <= 1e-6, ("loss", rel_loss, 1e-6)),
+                (worst <= 1e-3, ("largest leaf", worst, 1e-3))]
+    # (d)
+    d12 = [r["d"] for r in two]
+    rows12 = d12[0]
+    for name in ("pre", "nopre"):
+        assert torch.equal(d12[0][name]["y"], d12[1][name]["y"])
+        assert rows12[name]["aux"] == d12[1][name]["aux"]
+    assert torch.equal(rows12["nopre"]["y"].reshape(ep_ref["nopre"][0].shape),
+                       ep_ref["nopre"][0]), \
+        "model = 2 without pre-scale is not the one-process block"
+    pre_diff = float((rows12["pre"]["y"] - ep_ref["pre"][0]).abs().max())
+    d22 = [r["d"] for r in four]
+    for r in d22:
+        assert torch.equal(r["fsdp"]["y"], r["ep"]["y"]), \
+            "the f32 ZeRO-3 gather changed the block"
+    bf16_diff = max(float((r["fsdp_bf16"]["y"] - r["ep"]["y"]).abs().max())
+                    for r in d22)
+    log(f"[multi-device d] {card}: llama4-scout MoE block (d 5120, 16 "
+        f"experts of d_ff 8192, top-1) on tokens {EP_TOKENS}: model = 2 "
+        f"without pre-scale bit-identical to the one-process block; with "
+        f"P16 L-21b's pre-scale max |diff| {pre_diff:.4g} (aux "
+        f"{rows12['pre']['aux']:.6f} against {ep_ref['pre'][1]:.6f}); "
+        f"(2, 2) with moe_fsdp and no gather dtype bit-identical to (2, 2) "
+        f"without; bfloat16 gather max |diff| {bf16_diff:.4g}, gathered "
+        f"bytes a rank {d22[0]['fsdp_bf16']['bytes']['all_gather']} "
+        f"against {d22[0]['fsdp']['bytes']['all_gather']} in f32; "
+        f"seconds a run (1, 2) "
+        f"{ {k: round(v['s'], 2) for k, v in rows12.items()} }, (2, 2) "
+        f"{ {k: round(v['s'], 2) for k, v in d22[0].items()} }; peak a "
+        f"rank {max(v['peak'] for r in d22 for v in r.values()) / 2**30:.2f}"
+        f" GiB")
+    for ok, what in checks_c:
+        assert ok, f"3l(c) outside its bar: {what}"
+    log(f"[multi-device] {card}: port-staged bytes 0 (the port hands gloo "
+        f"the CUDA tensors; gloo copies them through host memory inside "
+        f"each collective); ranks {t_two:.1f} s (2 ranks: b, c, d) and "
+        f"{t_four:.1f} s (4 ranks: a, d)")
+    _build.reset_launches()
+    _build.LAUNCHES.update(launches)
+    return path_launches("multi-device b (both ranks)")
 
 
 def main(argv=None) -> int:
@@ -2071,6 +2678,12 @@ def main(argv=None) -> int:
         f"{qs['kernel_diff']:.3g}, lax_ref vs cuda {qs['api_diff']:.3g}; "
         f"mixed_precision lax_ref vs cuda {mp['diff']:.3g} (< 1e-3), "
         f"policy live {mp['live']:.3g}")
+
+    phase_start("3l")
+    _free()
+    got = phase_multi_device(card, path_launches)
+    for name in ("posit_encode_prescaled", "logmac"):
+        assert got[name] > 0, f"{name} not launched by the data ranks"
 
     phase_start("4")
     # ---- phase 4: timings ----------------------------------------------

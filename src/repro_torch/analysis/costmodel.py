@@ -31,8 +31,15 @@ Counted, at the reference's definitions:
 ``analyze(fn, *args)`` takes real tensors or ``meta`` tensors (the
 counterpart of ``jax.ShapeDtypeStruct``: shapes and dtypes, nothing
 computed).  ``analyze_graph`` counts an aten graph already traced with
-``make_fx``, as the reference's ``analyze_jaxpr`` walks a jaxpr.  The ``shard_map`` multiplier of the reference waits for the
-multi-device port.
+``make_fx``, as the reference's ``analyze_jaxpr`` walks a jaxpr.
+
+The reference multiplies a ``shard_map`` body's counts by the mesh size:
+its shapes are one device's, and every device runs it.  Here an op counts
+``distributed.collectives.ranks_running()`` times: the expert-parallel
+block of ``models.layers.moe_apply`` runs inside
+``collectives.on_every_rank(mesh size)``, so ``analyze`` on one rank of a
+mesh reports the global program's dot FLOPs for it (``dots`` still counts each op
+once, as the reference counts each equation once).
 
 Model FLOPs are counted on the ``exact`` backend, where every projection
 is one dot.  A custom CUDA launch (the ``cuda`` backend's encode and
@@ -46,6 +53,8 @@ import math
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.distributed.collectives import ranks_running
 
 aten = torch.ops.aten
 
@@ -107,19 +116,20 @@ def _zero() -> dict:
     return {"dot_flops": 0.0, "ew_flops": 0.0, "dot_traffic": 0.0, "dots": 0}
 
 
-def _count(acc: dict, func, args, out) -> None:
-    """Add one aten op's counts to ``acc``."""
+def _count(acc: dict, func, args, out, mult: int = 1) -> None:
+    """Add one aten op's counts, ``mult`` times, to ``acc``."""
     packet = getattr(func, "overloadpacket", func)
     dot = _dot_cost(packet, args, out)
     if dot is not None:
         flops, traffic = dot
-        acc["dot_flops"] += flops
-        acc["dot_traffic"] += traffic
+        acc["dot_flops"] += flops * mult
+        acc["dot_traffic"] += traffic * mult
         acc["dots"] += 1
         if packet in (aten.addmm, aten.baddbmm, aten.addbmm):
-            acc["ew_flops"] += _numel(out)       # the bias add
+            acc["ew_flops"] += _numel(out) * mult       # the bias add
     elif packet in ATEN_TO_PRIMITIVE:
-        acc["ew_flops"] += _numel(out) * len(ATEN_TO_PRIMITIVE[packet])
+        acc["ew_flops"] += (_numel(out) * len(ATEN_TO_PRIMITIVE[packet])
+                            * mult)
 
 
 class CostMode(TorchDispatchMode):
@@ -132,7 +142,7 @@ class CostMode(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        _count(self.counts, func, args, out)
+        _count(self.counts, func, args, out, ranks_running())
         return out
 
 

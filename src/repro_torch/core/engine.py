@@ -156,16 +156,45 @@ def _ste(approx, x):
     return x + (approx - x).detach()
 
 
-def _pow2_scale(x):
+def _pow2_scale(x, group=None):
     """Per-tensor power-of-2 scale centering the log-magnitude mass at 1
-    (the hardware's per-layer exponent bias)."""
-    ax = x.to(torch.float32).abs()
+    (the hardware's per-layer exponent bias).
+
+    ``group``: the process group over which ``x``'s rows are split (data
+    parallel); the sum of log2 and the count of nonzeros are then summed
+    over it before the mean is rounded, so every rank gets the scale of
+    the whole tensor, as the reference's GSPMD run computes it."""
+    ax = x.detach().to(torch.float32).abs()
     nz = ax > 0
     lg = torch.where(nz, torch.log2(torch.clamp(ax, min=1e-38)),
                      torch.zeros((), device=ax.device))
-    mean_lg = lg.sum() / torch.clamp(nz.sum(), min=1).to(torch.float32)
+    lg_sum, count = lg.sum(), nz.sum()
+    if group is not None:
+        from repro_torch.distributed.collectives import all_reduce
+        pair = all_reduce(torch.stack([lg_sum.to(torch.float64),
+                                       count.to(torch.float64)]), group)
+        lg_sum, count = pair[0].to(torch.float32), pair[1]
+    mean_lg = lg_sum / torch.clamp(count, min=1).to(torch.float32)
     s = torch.exp2(torch.round(mean_lg))
-    return torch.clamp(s, min=1e-30).detach()
+    return torch.clamp(s, min=1e-30)
+
+
+@contextlib.contextmanager
+def statistics_groups(group_a, group_b):
+    """The process groups over which operands a and b of the dots and
+    elementwise products issued inside take their per-tensor statistics
+    (None: the operand's own, as on one device).  ``numerics.api`` sets
+    them from the context's group and the call's replicated operands."""
+    prev = statistics_group_pair()
+    _TLS.groups = (group_a, group_b)
+    try:
+        yield
+    finally:
+        _TLS.groups = prev
+
+
+def statistics_group_pair() -> tuple:
+    return getattr(_TLS, "groups", (None, None))
 
 
 # values per slice of an operand's plane construction: the plain codec's
@@ -199,16 +228,18 @@ def _by_leading_rows(fn, x):
     return tuple(outs)
 
 
-def operand_planes(x, cfg: EulerConfig):
+def operand_planes(x, cfg: EulerConfig, group=None):
     """(val, rem) planes for one operand under ``cfg`` (STE gradients).
 
     The per-tensor statistics (the pow2 pre-scale, logfxp's max) come from
-    the whole tensor; the elementwise codec then runs over slices of the
-    leading dimension of at most ``PLANE_CHUNK`` values."""
+    the whole tensor, over ``group`` where its rows are split over one;
+    the elementwise codec then runs over slices of the leading dimension
+    of at most ``PLANE_CHUNK`` values."""
     if cfg.mode == "exact":
         return x.to(cfg.dtype), None
     if cfg.mode == "logfxp":
-        frac_exp = LM.fxp_frac_exp(x.to(torch.float32), cfg.width)
+        frac_exp = LM.fxp_frac_exp(x.detach().to(torch.float32), cfg.width,
+                                   group)
 
         def planes(xc):
             val, rem = LM.logfxp_planes(xc.to(torch.float32), cfg.width,
@@ -217,7 +248,7 @@ def operand_planes(x, cfg: EulerConfig):
 
         return _by_leading_rows(planes, x)
     pc = cfg.posit
-    s = (_pow2_scale(x) if cfg.pre_scale
+    s = (_pow2_scale(x, group) if cfg.pre_scale
          else torch.ones((), dtype=torch.float32, device=x.device))
     if cfg.mode in ("posit", "quant_only"):
         def planes(xc):
@@ -238,8 +269,9 @@ def operand_planes(x, cfg: EulerConfig):
 def euler_dot_general(a, b, dimension_numbers, cfg: EulerConfig):
     """Drop-in ``lax.dot_general`` under EULER-ADAS numerics: f32
     accumulation inside the dot, result stored at ``cfg.dtype``."""
-    va, ra = operand_planes(a, cfg)
-    vb, rb = operand_planes(b, cfg)
+    ga, gb = statistics_group_pair()
+    va, ra = operand_planes(a, cfg, ga)
+    vb, rb = operand_planes(b, cfg, gb)
     (lc, rc), _ = dimension_numbers
     if (ra is not None and rb is not None and cfg.fuse_planes
             and len(lc) == 1):
@@ -280,8 +312,9 @@ def euler_einsum_pv(p, v, cfg: EulerConfig):
 
 def ilm_elementwise(a, b, cfg: EulerConfig):
     """Elementwise EULER product (the reference's SSD state-update op)."""
-    va, ra = operand_planes(a, cfg)
-    vb, rb = operand_planes(b, cfg)
+    ga, gb = statistics_group_pair()
+    va, ra = operand_planes(a, cfg, ga)
+    vb, rb = operand_planes(b, cfg, gb)
     out = va * vb
     if ra is not None and rb is not None:
         out = out - ra * rb

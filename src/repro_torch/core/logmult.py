@@ -89,10 +89,17 @@ def ilm_pair(a, b, cfg: P.PositConfig, n: int, m: int | None,
 # Log-fixed-point baseline (paper Table VI "Log-fxp_n" rows)
 # --------------------------------------------------------------------------
 
-def fxp_frac_exp(x, bits: int) -> torch.Tensor:
+def fxp_frac_exp(x, bits: int, group=None) -> torch.Tensor:
     """The per-tensor fraction exponent of :func:`fxp_quantize`: the
-    largest magnitude lands just below ``2^(bits - 2)`` (int32, 0-dim)."""
-    amax = torch.max(torch.abs(x)) + 1e-30
+    largest magnitude lands just below ``2^(bits - 2)`` (int32, 0-dim).
+    ``group``: the process group over which ``x``'s rows are split; the
+    max is then taken over it."""
+    amax = torch.max(torch.abs(x))
+    if group is not None:
+        import torch.distributed as dist
+        from repro_torch.distributed.collectives import all_reduce
+        amax = all_reduce(amax.clone(), group, dist.ReduceOp.MAX)
+    amax = amax + 1e-30
     return (bits - 2) - torch.ceil(torch.log2(amax)).to(torch.int32)
 
 

@@ -255,19 +255,28 @@ def _to_torch(arr: np.ndarray, dtype_name: str, like: torch.Tensor):
     return t.to(device=like.device, dtype=like.dtype)
 
 
-def restore(ckpt_dir: str, target_tree, *, step: int | None = None,
-            verify: bool = True):
-    """Restore into the structure of ``target_tree``.  Torch leaves come
-    back with the target leaf's dtype on its device; other leaves as the
-    arrays on disk.  Returns (tree, step, extra)."""
+def restore(ckpt_dir: str, target_tree, *, shardings=None,
+            step: int | None = None, verify: bool = True):
+    """Restore into the structure of ``target_tree`` (global shapes).
+    Torch leaves come back with the target leaf's dtype on its device;
+    other leaves as the arrays on disk.
+
+    ``shardings``: a tree of ``target_tree``'s structure of (mesh, spec)
+    pairs (``distributed.sharding``); each leaf then comes back as this
+    rank's block under its spec (``sharding.local_shard`` at the mesh's
+    ``coord``), whatever mesh wrote the checkpoint: the elastic restore
+    onto another mesh shape.  Returns (tree, step, extra)."""
+    from . import sharding as SH
     manifest, d, step = _manifest(ckpt_dir, step)
     flat = _flatten(target_tree)
     if len(flat) != len(manifest["leaves"]):
         raise ValueError(
             f"checkpoint has {len(manifest['leaves'])} leaves, target has "
             f"{len(flat)} — structure mismatch")
+    placed = (SH.shardings_in_order(target_tree, shardings)
+              if shardings is not None else [None] * len(flat))
     out = []
-    for rec, (_, tgt) in zip(manifest["leaves"], flat):
+    for rec, (_, tgt), sh in zip(manifest["leaves"], flat, placed):
         arr = _load_leaf(d, rec, verify)
         shape = (tuple(tgt.shape) if isinstance(tgt, torch.Tensor)
                  else np.shape(tgt))
@@ -275,6 +284,8 @@ def restore(ckpt_dir: str, target_tree, *, step: int | None = None,
             raise ValueError(
                 f"shape mismatch on {rec['path']}: ckpt {arr.shape} vs "
                 f"target {shape}")
+        if sh is not None:
+            arr = np.ascontiguousarray(SH.local_shard(arr, sh[1], sh[0]))
         out.append(_to_torch(arr, rec["dtype"], tgt)
                    if isinstance(tgt, torch.Tensor) else arr)
     return _unflatten(target_tree, iter(out)), step, manifest["extra"]

@@ -13,6 +13,7 @@ Flags: ``-gencode arch=compute_90a,code=sm_90a -O3``; no
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -57,13 +58,24 @@ def _lib_path(name: str) -> Path:
 
 def build_all(names=SOURCES) -> dict[str, float]:
     """Compile every missing library in parallel; returns seconds per
-    source built by this call."""
+    source built by this call.  The build holds an exclusive lock on the
+    build directory (``fcntl.flock``, released by the system if the
+    process dies), so ranks that start cold together build once: the
+    ones that waited find the libraries there."""
+    if all(_lib_path(n).exists() for n in names):
+        return {}
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_missing(names, out_dir)
+
+
+def _build_missing(names, out_dir: Path) -> dict[str, float]:
     todo = [n for n in names if not _lib_path(n).exists()]
     if not todo:
         return {}
     nvcc = _nvcc()
-    out_dir = build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
     t0 = time.perf_counter()
     for n in todo:

@@ -37,6 +37,11 @@
 //     fixed tree, so all blocks get the same s without a third launch or a
 //     host sync; block 0 writes s; then each block encodes its share.
 // The plain entry is the encode launch alone, with s = 1.
+// The split entry is for a tensor whose rows are split over a group of
+// ranks (data parallel): posit_encode_reduce runs the reduce launch alone,
+// the caller sums the (sum, count) partials over the group, and
+// posit_encode_from_partials runs the encode launch on the summed
+// partials, so every rank encodes with the scale of the whole tensor.
 // No float atomics: two launches on the same input give the same bits.
 // Division is IEEE (no --use_fast_math); where s is a normal power of two
 // the exact reciprocal gives the same bits by one multiply.
@@ -270,16 +275,18 @@ struct EncodeArgs {
   long long n;
   euler::Posit pc;
   int reduce_blocks, encode_blocks;
+  int nparts;  // partials already in parts (reduce_blocks == 0 only)
   cudaStream_t st;
 };
 
-// With reduce_blocks > 0, the reduce launch then the encode launch; else
-// the encode launch alone with s = 1.
+// With reduce_blocks > 0, the reduce launch then the encode launch on its
+// partials; else the encode launch alone, on the nparts partials already
+// in parts (nparts == 0: s = 1).
 template <int N, int ES, int R>
 int launch(const EncodeArgs& a) {
   if (a.reduce_blocks == 0) {
     pe_encode_kernel<N, ES, R><<<a.encode_blocks, ENC_THREADS, 0, a.st>>>(
-        a.x, a.out, a.n, a.pc, a.parts, 0, a.s_out);
+        a.x, a.out, a.n, a.pc, a.parts, a.nparts, a.s_out);
     return (int)cudaGetLastError();
   }
   pe_reduce_kernel<<<a.reduce_blocks, RED_THREADS, 0, a.st>>>(a.x, a.n,
@@ -306,15 +313,9 @@ int launch(const EncodeArgs& a) {
 
 // The launch for the format: one of the six compiled formats (posit and
 // b-posit of widths 8, 16 and 32 with es 0, 1, 2 and bounds 2, 3, 5), or
-// the run-time one.  reduce_blocks == 0 is the plain entry (s = 1; s_out and
-// partials are not touched), else the fused pre-scale + encode.
-extern "C" int posit_encode_launch(const float* x, uint32_t* out, float* s_out,
-                                   void* partials, long long n, int N, int es,
-                                   int R, int reduce_blocks, int encode_blocks,
-                                   void* stream) {
-  const EncodeArgs a{x, out, s_out, reinterpret_cast<Partial*>(partials), n,
-                     euler::Posit{N, es, R}, reduce_blocks, encode_blocks,
-                     (cudaStream_t)stream};
+// the run-time one.
+static int launch_format(const EncodeArgs& a) {
+  const int N = a.pc.N, es = a.pc.es, R = a.pc.R;
   if (N == 8 && es == 0 && R == 0) return launch<8, 0, 0>(a);
   if (N == 8 && es == 0 && R == 2) return launch<8, 0, 2>(a);
   if (N == 16 && es == 1 && R == 0) return launch<16, 1, 0>(a);
@@ -322,4 +323,40 @@ extern "C" int posit_encode_launch(const float* x, uint32_t* out, float* s_out,
   if (N == 32 && es == 2 && R == 0) return launch<32, 2, 0>(a);
   if (N == 32 && es == 2 && R == 5) return launch<32, 2, 5>(a);
   return launch<0, 0, 0>(a);
+}
+
+// reduce_blocks == 0 is the plain entry (s = 1; s_out and partials are
+// not touched), else the fused pre-scale + encode.
+extern "C" int posit_encode_launch(const float* x, uint32_t* out, float* s_out,
+                                   void* partials, long long n, int N, int es,
+                                   int R, int reduce_blocks, int encode_blocks,
+                                   void* stream) {
+  return launch_format(EncodeArgs{
+      x, out, s_out, reinterpret_cast<Partial*>(partials), n,
+      euler::Posit{N, es, R}, reduce_blocks, encode_blocks, 0,
+      (cudaStream_t)stream});
+}
+
+// The split entry, first half: the reduce launch alone, one (f64 sum,
+// int64 count) partial per block into partials.
+extern "C" int posit_encode_reduce(const float* x, void* partials,
+                                   long long n, int reduce_blocks,
+                                   void* stream) {
+  pe_reduce_kernel<<<reduce_blocks, RED_THREADS, 0, (cudaStream_t)stream>>>(
+      x, n, reinterpret_cast<Partial*>(partials));
+  return (int)cudaGetLastError();
+}
+
+// The split entry, second half: the encode launch on nparts >= 1 partials
+// (after the stream's earlier work, so without a dependent launch: the
+// encode kernel's wait returns at once); block 0 writes s to s_out.
+extern "C" int posit_encode_from_partials(const float* x, uint32_t* out,
+                                          float* s_out, void* partials,
+                                          int nparts, long long n, int N,
+                                          int es, int R, int encode_blocks,
+                                          void* stream) {
+  return launch_format(EncodeArgs{
+      x, out, s_out, reinterpret_cast<Partial*>(partials), n,
+      euler::Posit{N, es, R}, 0, encode_blocks, nparts,
+      (cudaStream_t)stream});
 }

@@ -23,9 +23,11 @@ def encode(x: torch.Tensor, pc) -> torch.Tensor:
     return _codec.posit_encode(x, pc)
 
 
-def encode_prescaled(x: torch.Tensor, pc, pre_scale: bool = True):
-    """f32 -> (posit words of x / s, s), s = the pow2 scale of x."""
-    return _codec.posit_encode_prescaled(x, pc, pre_scale)
+def encode_prescaled(x: torch.Tensor, pc, pre_scale: bool = True,
+                     group=None):
+    """f32 -> (posit words of x / s, s), s = the pow2 scale of x (of the
+    whole tensor its rows belong to, over ``group``)."""
+    return _codec.posit_encode_prescaled(x, pc, pre_scale, group)
 
 
 def decode(pat: torch.Tensor, pc) -> torch.Tensor:
@@ -48,10 +50,14 @@ def euler_matmul_fused(x: torch.Tensor, w: torch.Tensor,
 
 
 def euler_matmul_prescaled(x: torch.Tensor, w: torch.Tensor,
-                           ecfg: EulerConfig) -> torch.Tensor:
+                           ecfg: EulerConfig, groups=(None, None)
+                           ) -> torch.Tensor:
     """``euler_matmul_fused`` of x / sx and w / sw, scaled back by sx * sw:
-    the pre-scaled contraction of the cuda backend."""
+    the pre-scaled contraction of the cuda backend.  ``groups``: the
+    process groups x's and w's scales are taken over (None: their own)."""
     pc = ecfg.posit
-    a_pat, sa = encode_prescaled(x.to(torch.float32).contiguous(), pc)
-    b_pat, sb = encode_prescaled(w.to(torch.float32).contiguous(), pc)
+    a_pat, sa = encode_prescaled(x.to(torch.float32).contiguous(), pc,
+                                 group=groups[0])
+    b_pat, sb = encode_prescaled(w.to(torch.float32).contiguous(), pc,
+                                 group=groups[1])
     return logmac_matmul(a_pat, b_pat, ecfg) * (sa * sb)

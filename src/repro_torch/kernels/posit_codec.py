@@ -11,6 +11,9 @@ per-tensor pow2 scale ``s = _pow2_scale(x)`` and the words of ``x / s`` in
 one kernel pass (a reduce launch, then an encode launch; ``_encode_plan``),
 returning ``(words, s)`` with ``s`` a 0-dim tensor on
 the tensor's device.  Its plain version is ``encode_prescaled_plain``.
+For a tensor whose rows are split over a process group, the pass runs
+split (``_launch_grouped``): the reduce launch, the partials summed over
+the group, then the encode launch.
 
 ``posit_decode`` maps words to f32 through the ILM ``val`` plane
 (``decode_planes_raw`` with stages 0), like the TPU decode kernel: zero and
@@ -170,6 +173,47 @@ def _launch(x: torch.Tensor, pc: P.PositConfig, pre_scale: bool
     return out, s
 
 
+def _launch_grouped(x: torch.Tensor, pc: P.PositConfig, group
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused pass split in two ctypes calls around a group sum: the
+    reduce launch, each rank's partials summed to one (f64 sum, int64
+    count) pair, the pairs summed over ``group`` (ranks may hold
+    different partial counts), then the encode launch on that pair.
+    Every rank gets the scale of the whole tensor its rows belong to.
+    Counts no launch (the wrapper does)."""
+    from repro_torch.distributed.collectives import all_reduce
+    n = x.numel()
+    plan = _encode_plan(n, True)
+    stream = _build.stream_ptr(x)
+    parts = torch.empty((plan.reduce_blocks, 2), dtype=torch.float64,
+                        device=x.device)
+    reduce_fn = _build.function(
+        "posit_encode", "posit_encode_reduce",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+         ctypes.c_void_p])
+    _build.check(reduce_fn(x.data_ptr(), parts.data_ptr(), n,
+                           plan.reduce_blocks, stream),
+                 "posit_encode_prescaled (reduce)")
+    pair = all_reduce(torch.stack([
+        parts[:, 0].sum(), parts.view(torch.int64)[:, 1].sum().to(
+            torch.float64)]), group)
+    total = torch.empty((1, 2), dtype=torch.float64, device=x.device)
+    total[0, 0] = pair[0]
+    total.view(torch.int64)[0, 1] = pair[1].to(torch.int64)
+    out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    s = torch.empty((), dtype=torch.float32, device=x.device)
+    encode_fn = _build.function(
+        "posit_encode", "posit_encode_from_partials",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    _build.check(encode_fn(x.data_ptr(), out.data_ptr(), s.data_ptr(),
+                           total.data_ptr(), 1, n, pc.n_bits, pc.es,
+                           pc.regime_max or 0, plan.encode_blocks, stream),
+                 "posit_encode_prescaled (encode)")
+    return out, s
+
+
 def posit_encode(x: torch.Tensor, pc: P.PositConfig) -> torch.Tensor:
     """f32 tensor -> posit words (int32 holding uint32 bits), any shape."""
     if x.device.type == "cpu":
@@ -182,24 +226,26 @@ def posit_encode(x: torch.Tensor, pc: P.PositConfig) -> torch.Tensor:
     return out
 
 
-def encode_prescaled_plain(x, pc: P.PositConfig, pre_scale: bool = True
-                           ) -> tuple[torch.Tensor, torch.Tensor]:
+def encode_prescaled_plain(x, pc: P.PositConfig, pre_scale: bool = True,
+                           group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain version of the fused kernel: ``(encode_plain(x / s), s)``
-    with ``s = engine._pow2_scale(x)``, or 1 without pre-scale."""
+    with ``s = engine._pow2_scale(x, group)``, or 1 without pre-scale."""
     xf = torch.as_tensor(x).to(torch.float32)
     if not pre_scale:
         return (encode_plain(xf, pc),
                 torch.ones((), dtype=torch.float32, device=xf.device))
-    s = _E._pow2_scale(xf)
+    s = _E._pow2_scale(xf, group)
     return encode_plain(xf / s, pc), s
 
 
 def posit_encode_prescaled(x: torch.Tensor, pc: P.PositConfig,
-                           pre_scale: bool = True
+                           pre_scale: bool = True, group=None
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """f32 tensor -> (posit words of x / s, s), s the per-tensor pow2 scale
     (a 0-dim f32 tensor on x's device; 1 without pre-scale, where the words
-    come from ``posit_encode``).
+    come from ``posit_encode``).  ``group``: the process group over which
+    ``x``'s rows are split; s is then the whole tensor's (the split entry,
+    :func:`_launch_grouped`).
 
     On the card the mean log2 that s rounds is summed in f64, where
     ``_pow2_scale`` sums in f32: where that mean lies within the f32 sum's
@@ -208,12 +254,15 @@ def posit_encode_prescaled(x: torch.Tensor, pc: P.PositConfig,
     sum is the nearer to the exact mean (chip_smoke.py phase 2 reports the
     margin on inputs placed next to a tie)."""
     if x.device.type == "cpu":
-        return encode_prescaled_plain(x, pc, pre_scale)
+        return encode_prescaled_plain(x, pc, pre_scale, group)
     _check_input(x, "posit_encode_prescaled")
     if not pre_scale:
         return (posit_encode(x, pc),
                 torch.ones((), dtype=torch.float32, device=x.device))
-    out, s = _launch(x, pc, pre_scale=True)
+    if group is not None:
+        out, s = _launch_grouped(x, pc, group)
+    else:
+        out, s = _launch(x, pc, pre_scale=True)
     _build.count_launch("posit_encode_prescaled", pc.n_bits)
     return out, s
 

@@ -12,9 +12,16 @@ the FULL configuration unless ``--smoke`` is given, on ``--device cuda``
 cpu``.  ``--backend lax_ref`` (the default) is the differentiable path;
 ``cuda`` is forward-only and refuses at the first step.  Runs are
 bit-identical on replay: float32 contractions at full precision
-(``pin_exact_f32``) under :func:`deterministic`.  ``--mesh`` takes only
-``local``: the multi-device slice is not ported (ROADMAP queue 1,
-multi-device).
+(``pin_exact_f32``) under :func:`deterministic`.
+
+``--mesh single|multi`` trains data parallel on the production mesh
+(``launch.mesh``: 16 x 16, or 2 x 16 x 16) over the launched world, one
+process per rank, as ``torchrun`` starts them (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``; each rank on ``cuda:LOCAL_RANK``): the state replicated
+from rank 0, each rank on its rows of the reference's global batch
+(``batch_for_step(data, i, --batch, --seq)``), the gradients summed over
+the data axes (``training.train_step``).  A world of another size raises.
+Rank 0 logs and writes checkpoints.  ``--mesh local`` is one process.
 
 Its numerics come from ``launch.build_numerics``, shared with
 ``launch.serve``.
@@ -34,10 +41,12 @@ from repro_torch.data import SyntheticLM, batch_for_step
 from repro_torch.distributed import checkpoint as CK
 from repro_torch.distributed import failover as F
 from repro_torch.launch import build_numerics, pin_exact_f32
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.layers import Ctx
 from repro_torch.models.transformer import Model
 from repro_torch.optim import AdamW, cosine_schedule
-from repro_torch.training import (init_state, make_train_step, restore_state,
+from repro_torch.training import (broadcast_state, init_state,
+                                  make_train_step, rank_rows, restore_state,
                                   save_state)
 
 
@@ -57,12 +66,13 @@ def deterministic():
         torch.use_deterministic_algorithms(prev)
 
 
-def build(args):
+def build(args, mesh=None):
     mod = C.get_config(args.arch)
     cfg = mod.SMOKE if args.smoke else mod.FULL
     nctx = build_numerics(args)
     model = Model(cfg, numerics=nctx, device=args.device)
-    ctx = Ctx(numerics=nctx)
+    ctx = Ctx(numerics=nctx, mesh=mesh,
+              moe_fsdp=cfg.family == "moe" and cfg.n_experts >= 64)
     opt = AdamW(lr=cosine_schedule(args.lr, args.warmup, args.steps),
                 weight_decay=0.01)
     return model, cfg, ctx, opt
@@ -107,26 +117,45 @@ def main(argv=None) -> dict:
     the final state, per-step losses and grad norms, seconds per step and
     the device's peak memory."""
     args = parser().parse_args(argv)
-    if args.mesh != "local":
-        raise SystemExit(f"--mesh {args.mesh}: the multi-device slice is not "
-                         f"ported yet (ROADMAP queue 1, multi-device); use "
-                         f"--mesh local")
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available; "
                            "pass --device cpu to run on the CPU")
+    mesh = None
+    if args.mesh != "local":
+        mesh = production_mesh(args)
     pin_exact_f32()
     with deterministic():
-        return _train(args)
+        return _train(args, mesh)
 
 
-def _train(args) -> dict:
-    model, cfg, ctx, opt = build(args)
+def production_mesh(args):
+    """The production mesh over the launched world; on a card each rank
+    computes on ``cuda:LOCAL_RANK`` (``args.device`` is set to it)."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    want = 512 if args.mesh == "multi" else 256
+    if world != want:
+        raise SystemExit(
+            f"--mesh {args.mesh} is the {'2x16x16' if want == 512 else '16x16'}"
+            f" production mesh: launch {want} ranks (torchrun sets RANK, "
+            f"WORLD_SIZE, LOCAL_RANK); this world has {world}")
+    cpu = args.device == "cpu"
+    if not cpu:
+        args.device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+    return make_production_mesh(multi_pod=args.mesh == "multi",
+                                device="cpu" if cpu else "cuda")
+
+
+def _train(args, mesh=None) -> dict:
+    model, cfg, ctx, opt = build(args, mesh)
+    lead = not torch.distributed.is_initialized() or \
+        torch.distributed.get_rank() == 0
     dev = model.device
     held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     data = SyntheticLM(vocab=cfg.vocab, seed=args.seed)
-    state = init_state(model, opt, args.seed, compress=args.compress_grads)
+    state = broadcast_state(init_state(model, opt, args.seed,
+                                       compress=args.compress_grads))
     start = 0
     if (args.resume and args.ckpt_dir
             and CK.latest_step(args.ckpt_dir) is not None):
@@ -146,8 +175,9 @@ def _train(args) -> dict:
     losses, gnorms = [], []
     t0 = time.time()
     for i in range(start, args.steps):
-        batch = batch_for_step(data, i, args.batch, args.seq,
-                               embeddings_dim=emb_dim, device=dev)
+        batch = rank_rows(batch_for_step(data, i, args.batch, args.seq,
+                                         embeddings_dim=emb_dim, device=dev),
+                          ctx)
         state, out = step_fn(state, batch)
         losses.append(float(out["loss"]))
         gnorms.append(float(out["grad_norm"]))
@@ -155,9 +185,9 @@ def _train(args) -> dict:
         decision = pol.decide(mon, det, i)
         if decision.action != F.Action.CONTINUE:
             print(f"[failover] {decision.action}: {decision.reason}")
-        if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
+        if lead and args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
             save_state(args.ckpt_dir, i + 1, state)
-        if i % args.log_every == 0 or i == args.steps - 1:
+        if lead and (i % args.log_every == 0 or i == args.steps - 1):
             print(f"step {i:5d} loss {losses[-1]:.4f} "
                   f"gnorm {gnorms[-1]:.3f} "
                   f"lr {float(out['lr']):.2e} "
@@ -165,9 +195,10 @@ def _train(args) -> dict:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     seconds = time.time() - t0
-    if args.ckpt_dir:
+    if lead and args.ckpt_dir:
         save_state(args.ckpt_dir, args.steps, state)
-    print("done")
+    if lead:
+        print("done")
     return {"state": state, "arch": cfg.name,
             "n_layers": cfg.n_layers, "d_model": cfg.d_model,
             "params": sum(p.numel() for p in T.leaves(state.params)),

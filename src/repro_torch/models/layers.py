@@ -1,15 +1,27 @@
 """Composable layers: attention, MLPs and the mixture of experts.  Every
 matmul routes through ``repro_torch.numerics``.
 
-Counterpart of ``repro.models.layers`` on one device: functional style,
+Counterpart of ``repro.models.layers``: functional style,
 ``*_apply(params, x, ctx)`` on dicts of tensors.  Attention traces under
 the ``attn`` scope, MLPs under ``mlp`` and MoE under ``moe``, so a
 ``PrecisionPolicy`` rule like ``("*attn*", P8)`` hits exactly the
-attention ops.  The reference's expert-parallel ``shard_map`` branch of
-the MoE (and its ZeRO-3 weight gather) waits for the multi-device slice.
-Norms, softmax, RoPE, router logits and elementwise nonlinearities run in
-exact f32; the casts between the compute dtype and f32 mirror the
-reference.
+attention ops.  Norms, softmax, RoPE, router logits and elementwise
+nonlinearities run in exact f32; the casts between the compute dtype and
+f32 mirror the reference.
+
+On a mesh (``Ctx.mesh``, one process per rank) each rank holds its rows
+of the global batch, split over the data axes, and the whole parameter
+tree, as the reference's launcher places the train state replicated.
+The numbers are the reference's GSPMD run's: the per-tensor statistics of
+the activations are taken over the data group (``Ctx.numerics.group``;
+:func:`dense_apply` names its weight replicated), and ``moe_apply`` runs
+the reference's ``shard_map`` expert block (local statistics, per-rank
+capacity, experts over ``model``, the ZeRO-3 gather under ``moe_fsdp``).
+The reference's placement constraints (``Ctx.shard``, attention's head
+shard under ``attn_head_shard``, the residual's sequence sharding) tell
+GSPMD where to put data and leave the numbers as they are; eager tensors
+of one rank have no placement to change, so they have no counterpart
+here.
 
 KV caches are updated in place (the reference returns new arrays): a
 layer's cache is a view into the model's ``[L, ...]`` stack, and
@@ -18,6 +30,7 @@ layer's cache is a view into the model's ``[L, ...]`` stack, and
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -27,9 +40,14 @@ from repro_torch import numerics as N
 from repro_torch.core import posit as _P
 from repro_torch.core import xla_f32 as _X
 from repro_torch.core.engine import EulerConfig, no_batch_dot
+from repro_torch.distributed import collectives as C
 from repro_torch.numerics import NumericsContext
 
 _NEG = -1e30
+# the mesh axes (``launch.mesh``) the batch rows split over, and the one
+# the experts split over
+DATA_AXES = ("pod", "data")
+MODEL_AXIS = "model"
 
 
 def cache_encode(x, cache_dtype, pc=None):
@@ -63,11 +81,17 @@ def cache_policy_pc(ctx, cache_dtype):
 class Ctx:
     ecfg: EulerConfig | None = None  # uniform config (promoted to a policy)
     numerics: NumericsContext | None = None  # policy + backend (wins if set)
+    mesh: Any = None                 # launch.mesh.Mesh or None: each rank
+                                     # holds its rows of the global batch
     decode_pos: Any = None           # decode position: int or [B] tensor
     page_table: Any = None           # [B, n_logical] int32 physical page ids
                                      # — presence selects paged decode
     decode_write: Any = None         # [B] bool write mask for paged decode
                                      # (False rows write the trash page)
+    moe_fsdp: bool = False           # expert weights' f dim ZeRO-3 over the
+                                     # data axes, gathered per layer
+    moe_gather_dtype: Any = None     # cast expert weights before the ZeRO-3
+                                     # all-gather (bf16 halves wire bytes)
 
     def __post_init__(self):
         if self.numerics is None:
@@ -76,14 +100,31 @@ class Ctx:
                 else EulerConfig(mode="exact"))
         if self.ecfg is None:
             self.ecfg = self.numerics.policy.default
+        # the data group carries the activations' statistics
+        group = self.data_group
+        if group is not self.numerics.group:
+            self.numerics = dataclasses.replace(self.numerics, group=group)
+
+    @property
+    def data_group(self):
+        """The process group of the data axes, or None (no mesh, or one
+        rank along them)."""
+        return None if self.mesh is None else self.mesh.group(DATA_AXES)
+
+    @property
+    def model_group(self):
+        return None if self.mesh is None else self.mesh.group(MODEL_AXIS)
 
 
-def dot(a, b, ctx: Ctx, dn=None, op: str = "matmul"):
+def dot(a, b, ctx: Ctx, dn=None, op: str = "matmul",
+        replicated: bool = False):
     """Policy-resolved dot_general; default contracts a's last with b's
-    first dim (op kind "matmul")."""
+    first dim (op kind "matmul").  ``replicated``: ``b`` is a weight
+    (``numerics.dot_general``)."""
     if dn is None:
         dn = (((a.ndim - 1,), (0,)), ((), ()))
-    return N.dot_general(a, b, dn, ctx.numerics, op=op)
+    return N.dot_general(a, b, dn, ctx.numerics, op=op,
+                         replicated=replicated)
 
 
 # --------------------------------------------------------------------------
@@ -98,7 +139,7 @@ def dense_init(gen, d_in: int, d_out: int, device, scale: float | None = None):
 
 
 def dense_apply(p, x, ctx: Ctx):
-    return dot(x, p["w"], ctx)
+    return dot(x, p["w"], ctx, replicated=True)
 
 
 def rmsnorm_init(d: int, device):
@@ -412,36 +453,45 @@ def moe_route(xt, router_w, k: int):
     return probs, gates, ids
 
 
-def moe_capacity(n_tok: int, k: int, E: int, capacity_factor: float) -> int:
-    """Tokens each expert takes: ``round`` half to even, as the reference's
-    Python ``round`` (32 tokens, k = 1, E = 16, factor 1.25 gives 2)."""
-    return int(max(1, round(n_tok * k / E * capacity_factor)))
+def moe_capacity(n_tok: int, k: int, E: int, capacity_factor: float,
+                 dp: int = 1) -> int:
+    """Tokens each expert takes on one rank: ``n_tok`` global tokens over
+    ``dp`` data ranks, ``round`` half to even, as the reference's Python
+    ``round`` (32 tokens, k = 1, E = 16, factor 1.25 gives 2)."""
+    return int(max(1, round(n_tok / dp * k / E * capacity_factor)))
 
 
-def moe_dispatch(ids, E: int, cap: int):
-    """Sort-free capacity dispatch of the router's choices ``ids`` [n, k]:
-    each (token, choice) in token-major order takes the next free rank of
-    its expert.  Returns (flat expert ids [n*k], ranks [n*k], keep mask
-    [n*k]: rank < cap)."""
-    flat_e = ids.reshape(-1)
-    onehot = F.one_hot(flat_e, E).to(torch.int32)
+def moe_dispatch(ids, E: int, cap: int, e0: int = 0):
+    """Sort-free capacity dispatch of the router's choices ``ids`` [n, k]
+    to the ``E`` experts ``e0 .. e0 + E - 1`` of one block: each (token,
+    choice) in token-major order takes the next free rank of its expert;
+    choices of other experts go to a junk bucket.  Returns (block-local
+    expert ids [n*k], ranks [n*k], keep mask [n*k]: this block's and
+    rank < cap)."""
+    flat_e = ids.reshape(-1) - e0
+    mine = (flat_e >= 0) & (flat_e < E)
+    safe = torch.where(mine, flat_e, E)
+    onehot = F.one_hot(safe, E + 1).to(torch.int32)
     # an integer prefix sum over the tokens (torch's deterministic mode
     # refuses only float cumsum on a card)
     rank = (torch.cumsum(onehot, 0, dtype=torch.int32) - 1).gather(
-        1, flat_e[:, None])[:, 0]
-    return flat_e, rank, rank < cap
+        1, safe[:, None])[:, 0]
+    return flat_e, rank, mine & (rank < cap)
 
 
-def _moe_expert_block(xt, ids, gates, wi, wg, wo, cap: int, nctx):
-    """Dispatch the tokens ``xt`` [n, d] to their experts' capacity
-    buffers [E, cap, d], run the expert FFNs (three batched contractions
-    through the numerics layer, batch dimension 0) and combine back to
-    token order weighted by the gates.  Single device: every expert is
-    local."""
+def _moe_expert_block(xt, ids, gates, wi, wg, wo, cap: int, nctx,
+                      e0: int = 0):
+    """Dispatch the tokens ``xt`` [n, d] to the capacity buffers [E, cap,
+    d] of the block's experts (``wi``/``wg`` [E, d, f], ``wo`` [E, f, d]:
+    global experts ``e0 .. e0 + E - 1``), run the expert FFNs (three
+    batched contractions through the numerics layer, batch dimension 0)
+    and combine back to token order weighted by the gates.  The single
+    device path is the block of all experts; a model rank's is its
+    share, whose output is partial (summed over ``model``)."""
     n, k = ids.shape
     d = xt.shape[-1]
     E = wi.shape[0]
-    flat_e, rank, keep = moe_dispatch(ids, E, cap)
+    flat_e, rank, keep = moe_dispatch(ids, E, cap, e0)
     tok = torch.arange(n, device=xt.device).repeat_interleave(k)
     # kept (expert, rank) slots are unique: a plain indexed write
     buf = torch.zeros((E, cap, d), dtype=xt.dtype, device=xt.device)
@@ -464,22 +514,78 @@ def _moe_expert_block(xt, ids, gates, wi, wg, wo, cap: int, nctx):
     return y
 
 
+def _moe_expert_parallel(p, xt, ids, gates, ctx: Ctx, cap: int):
+    """The reference's ``shard_map`` body on this rank: its ``E / model``
+    experts from ``e0 = model index * E_local`` on its own tokens, every
+    statistic local (the block's numerics carry no group), the partial
+    outputs summed over ``model``.  Under ``moe_fsdp`` (and more than one
+    data rank) the experts' f dim is this rank's ZeRO-3 block, cast to
+    ``moe_gather_dtype`` and all-gathered over the data axes here, per
+    layer.  The expert stacks may be kept in host memory; only this
+    rank's block is copied to the tokens' device."""
+    mesh, dg, mg = ctx.mesh, ctx.data_group, ctx.model_group
+    msz = C.group_size(mg)
+    E_l = p["wi"]["w"].shape[0] // msz
+    e0 = mesh.coord[MODEL_AXIS] * E_l if msz > 1 else 0
+    wi, wg, wo = (p[n]["w"][e0:e0 + E_l] for n in ("wi", "wg", "wo"))
+    fsdp = ctx.moe_fsdp and dg is not None
+    if fsdp:
+        dp, r = C.group_size(dg), mesh.index(DATA_AXES)
+        f_l = wi.shape[2] // dp
+        wi, wg = (w[:, :, r * f_l:(r + 1) * f_l] for w in (wi, wg))
+        wo = wo[:, r * f_l:(r + 1) * f_l]
+    # the stacks may stay in host memory: the rank's block goes to the
+    # tokens' device (a no-op where it is there)
+    wi, wg, wo = (w.to(xt.device) for w in (wi, wg, wo))
+    if fsdp:
+        if ctx.moe_gather_dtype is not None:   # the wire carries this dtype
+            wi, wg, wo = (w.to(ctx.moe_gather_dtype) for w in (wi, wg, wo))
+        wi, wg = (C.gather_dim(w, 2, dg) for w in (wi, wg))
+        wo = C.gather_dim(wo, 1, dg)
+    local = dataclasses.replace(ctx.numerics, group=None)
+    with C.on_every_rank(math.prod(mesh.shape.values())):
+        y = _moe_expert_block(C.copy_sum_grad(xt, mg), ids,
+                              C.copy_sum_grad(gates, mg), wi, wg, wo, cap,
+                              local, e0)
+    return C.reduce_sum(y, mg)
+
+
 @N.scoped("moe")
 def moe_apply(p, x, ctx: Ctx, cfg):
-    """Top-k MoE on one device: the router, the capacity dispatch, the
-    expert FFNs, the optional dense residual MLP and the Switch-style
-    load-balancing aux loss.  Returns (y [B, T, d], aux)."""
+    """Top-k MoE: the router, the capacity dispatch, the expert FFNs, the
+    optional dense residual MLP and the Switch-style load-balancing aux
+    loss.  Returns (y [B, T, d], aux).
+
+    On a mesh with more than one rank along the data or model axes, the
+    experts run as the reference's expert-parallel block
+    (:func:`_moe_expert_parallel`), with the capacity of one data rank's
+    tokens; the router, the dense residual and the aux loss stay outside
+    it, with the global semantics: ``me`` and ``ce`` are means over the
+    global tokens, summed over the data group before ``E * sum(me *
+    ce)``."""
     B, T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
-    n_tok = B * T
-    xt = x.reshape(n_tok, d)
+    xt = x.reshape(B * T, d)
     probs, gates, ids = moe_route(xt, p["router"]["w"], k)
-    cap = moe_capacity(n_tok, k, E, cfg.capacity_factor)
-    y = _moe_expert_block(xt, ids, gates, p["wi"]["w"], p["wg"]["w"],
-                          p["wo"]["w"], cap, ctx.numerics)
+    dg, mg = ctx.data_group, ctx.model_group
+    dp, msz = C.group_size(dg), C.group_size(mg)
+    n_tok = B * T * dp                       # global tokens
+    cap = moe_capacity(n_tok, k, E, cfg.capacity_factor, dp)
+    if dp > 1 or msz > 1:
+        if E % msz:
+            raise NotImplementedError(
+                f"{E} experts do not split over {msz} model ranks")
+        y = _moe_expert_parallel(p, xt, ids, gates, ctx, cap)
+    else:
+        y = _moe_expert_block(xt, ids, gates, p["wi"]["w"], p["wg"]["w"],
+                              p["wo"]["w"], cap, ctx.numerics)
     if cfg.moe_dense_residual:
         y = y + mlp_apply(p["dense"], xt, ctx, "silu_gated")
-    me = torch.mean(probs, 0)
-    ce = torch.mean(F.one_hot(ids[:, 0], E).to(torch.float32), 0)
+    onehot = F.one_hot(ids[:, 0], E).to(torch.float32)
+    if dg is None:
+        me, ce = torch.mean(probs, 0), torch.mean(onehot, 0)
+    else:
+        me = C.reduce_sum(torch.sum(probs, 0), dg) / n_tok
+        ce = C.reduce_sum(torch.sum(onehot, 0), dg) / n_tok
     aux = E * torch.sum(me * ce)
     return y.to(x.dtype).reshape(B, T, d), aux

@@ -10,7 +10,7 @@
   hybrid  parallel attention + SSD heads per block, each branch normalized,
           then averaged, then an MLP (hymba)
 
-Counterpart of ``repro.models.transformer`` on one device: init,
+Counterpart of ``repro.models.transformer``: init,
 forward, head, the T-chunked cross-entropy ``loss``, prefill,
 decode_step, dense caches (KV slabs, SSM state and conv tail) and the
 paged KV pool (attention-only: ``ssm``/``hybrid`` hold
@@ -45,6 +45,7 @@ from repro_torch import numerics as N
 from repro_torch.core import posit as _P
 from repro_torch.core import xla_f32 as _X
 from repro_torch.core.engine import EulerConfig, in_no_batch_dot
+from repro_torch.distributed import collectives as C
 from repro_torch.numerics import NumericsContext
 
 from . import layers as L
@@ -283,8 +284,8 @@ class Model:
         emb = params["embed"]["e"].to(h.dtype)
         dn = (((h.ndim - 1,), (1,)), ((), ()))
         with N.scope("head"):
-            logits = N.dot_general(h, emb, dn, ctx.numerics,
-                                   op="matmul").to(torch.float32)
+            logits = N.dot_general(h, emb, dn, ctx.numerics, op="matmul",
+                                   replicated=True).to(torch.float32)
         if cfg.logit_softcap:
             logits = cfg.logit_softcap * _X.tanh(logits / cfg.logit_softcap)
         if cfg.vocab_padded > cfg.vocab:  # mask padded vocab slots
@@ -306,7 +307,10 @@ class Model:
 
         batch: {"inputs": ids [B, T] or embeds [B, T, d], "labels": ids
         [B, T]}.  Returns (loss, {"xent", "aux"}): the moe family adds
-        ``0.01 * aux``, the router loss summed over the blocks."""
+        ``0.01 * aux``, the router loss summed over the blocks.  On a mesh
+        (``ctx.mesh``) the batch is this rank's rows; the loss is the
+        global batch's, and its gradient on each rank that rank's share,
+        so the ranks' gradients sum to the global one."""
         hidden, _, aux = self.forward_aux(params, batch["inputs"], ctx)
         labels = batch["labels"]
         B, T = labels.shape
@@ -326,7 +330,10 @@ class Model:
             else:
                 part = self._chunk_loss(params, h_c, y_c, ctx)
             total = total + part
-        xent = total / (B * T)
+        # on a mesh: the sum over the data group, normalised by the global
+        # B * T; each rank's gradient is its own rows' share
+        dg = ctx.data_group
+        xent = C.reduce_sum(total, dg) / (B * C.group_size(dg) * T)
         loss = xent + 0.01 * aux if self.cfg.family == "moe" else xent
         return loss, {"xent": xent, "aux": aux}
 

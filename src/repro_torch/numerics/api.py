@@ -30,7 +30,9 @@ import contextlib
 import dataclasses
 import functools
 import threading
+from typing import Any
 
+from repro_torch.core import engine as _E
 from repro_torch.core.engine import EulerConfig
 
 from .backends import get_backend
@@ -39,11 +41,21 @@ from .policy import PrecisionPolicy
 
 @dataclasses.dataclass(frozen=True)
 class NumericsContext:
-    """Frozen (policy, backend) pair — the unit of numerics configuration."""
+    """Frozen (policy, backend) pair — the unit of numerics configuration.
+
+    ``group``: the process group over which the batch rows of the
+    activations are split (data parallel; ``models.layers.Ctx`` sets it
+    from its mesh), or None.  The per-tensor statistics of an operand
+    (the pow2 pre-scale, logfxp's max) are then taken over the group, so
+    each rank computes with the whole tensor's, as the reference's GSPMD
+    run does; an operand a call names as replicated (a weight) keeps its
+    own, which are the same numbers.  Not part of the configuration's
+    identity: it takes no part in equality or ``to_dict``."""
 
     policy: PrecisionPolicy = dataclasses.field(
         default_factory=PrecisionPolicy)
     backend: str = "lax_ref"
+    group: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     @classmethod
     def from_ecfg(cls, ecfg: EulerConfig,
@@ -145,13 +157,19 @@ def resolve(op: str = "dot_general", path: str | None = None,
     return nctx.cfg_for(p, op)
 
 
-def _dispatch(op: str, ctx: NumericsContext | None, path: str | None):
+def _dispatch(op: str, ctx: NumericsContext | None, path: str | None,
+              replicated: bool = False):
+    """(backend, cfg, statistics groups) of one op: the groups of its
+    operands a and b (``engine.statistics_groups``), None for b where it
+    is ``replicated`` and for both where the context has no group."""
     nctx = ctx if ctx is not None else current()
     p = path if path is not None else current_path()
     # the resolved (op, path), for wrapping backends (the Backend protocol
     # does not carry them): read with last_dispatch() during the call
     _TLS.last_dispatch = (op, p)
-    return get_backend(nctx.backend), nctx.cfg_for(p, op)
+    g = nctx.group
+    groups = (g, None if replicated else g)
+    return get_backend(nctx.backend), nctx.cfg_for(p, op), groups
 
 
 def last_dispatch() -> tuple[str, str]:
@@ -192,38 +210,50 @@ def reset_guard_stats():
     _G.reset()
 
 
+def _under(groups, fn, *args):
+    """``fn(*args)`` with the operands' statistics groups set (where
+    either is a group)."""
+    if groups == (None, None):
+        return fn(*args)
+    with _E.statistics_groups(*groups):
+        return fn(*args)
+
+
 def dot_general(a, b, dimension_numbers, ctx: NumericsContext | None = None,
-                *, op: str = "dot_general", path: str | None = None):
+                *, op: str = "dot_general", path: str | None = None,
+                replicated: bool = False):
     """``lax.dot_general`` (JAX dimension numbers) under the active
-    policy/backend; ``op`` tags the call for policy resolution."""
-    backend, cfg = _dispatch(op, ctx, path)
-    return backend.dot_general(a, b, dimension_numbers, cfg)
+    policy/backend; ``op`` tags the call for policy resolution.
+    ``replicated``: ``b`` is a weight every rank holds whole, which keeps
+    its own statistics under a context's group."""
+    backend, cfg, groups = _dispatch(op, ctx, path, replicated)
+    return _under(groups, backend.dot_general, a, b, dimension_numbers, cfg)
 
 
 def matmul(a, b, ctx: NumericsContext | None = None, *,
            path: str | None = None):
     """a @ b (contract a's last dim with b's first) under the active policy."""
-    backend, cfg = _dispatch("matmul", ctx, path)
-    return backend.matmul(a, b, cfg)
+    backend, cfg, groups = _dispatch("matmul", ctx, path)
+    return _under(groups, backend.matmul, a, b, cfg)
 
 
 def qk(q, k, ctx: NumericsContext | None = None, *, path: str | None = None):
     """Attention scores q·k^T over the last dim: [..., T, D] x [..., S, D]."""
-    backend, cfg = _dispatch("qk", ctx, path)
-    return backend.qk(q, k, cfg)
+    backend, cfg, groups = _dispatch("qk", ctx, path)
+    return _under(groups, backend.qk, q, k, cfg)
 
 
 def pv(p, v, ctx: NumericsContext | None = None, *, path: str | None = None):
     """Attention values p·v: [..., T, S] x [..., S, D]."""
-    backend, cfg = _dispatch("pv", ctx, path)
-    return backend.pv(p, v, cfg)
+    backend, cfg, groups = _dispatch("pv", ctx, path)
+    return _under(groups, backend.pv, p, v, cfg)
 
 
 def elementwise(a, b, ctx: NumericsContext | None = None, *,
                 path: str | None = None):
     """Elementwise EULER product (SSD state-update path)."""
-    backend, cfg = _dispatch("elementwise", ctx, path)
-    return backend.elementwise(a, b, cfg)
+    backend, cfg, groups = _dispatch("elementwise", ctx, path)
+    return _under(groups, backend.elementwise, a, b, cfg)
 
 
 def decode_attention(q, k_pages, v_pages, page_table, pos,

@@ -154,9 +154,11 @@ class CudaBackend(LaxRefBackend):
         bf = b2.reshape(K, N).to(torch.float32)
         # the engine's per-tensor power-of-2 centering, computed with each
         # operand's words in one kernel pass
-        matmul = (_K.euler_matmul_prescaled if cfg.pre_scale
-                  else _K.euler_matmul_fused)
-        out = matmul(af, bf, cfg)
+        if cfg.pre_scale:   # over the operands' groups, where split
+            out = _K.euler_matmul_prescaled(af, bf, cfg,
+                                            _E.statistics_group_pair())
+        else:
+            out = _K.euler_matmul_fused(af, bf, cfg)
         if cfg.out_quant:
             out = _P.quantize(out, cfg.posit)
         return out.reshape(lhs_free + rhs_free).to(cfg.dtype)

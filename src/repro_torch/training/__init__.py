@@ -1,5 +1,7 @@
-from .train_step import (TrainState, init_state, make_eval_step,
-                         make_train_step, restore_state, save_state)
+from .train_step import (TrainState, broadcast_state, init_state,
+                         make_eval_step, make_train_step, rank_rows,
+                         restore_state, save_state, sync_grads)
 
 __all__ = ["TrainState", "make_train_step", "make_eval_step", "init_state",
-           "save_state", "restore_state"]
+           "save_state", "restore_state", "broadcast_state", "rank_rows",
+           "sync_grads"]

@@ -13,6 +13,19 @@ Checkpoints (``distributed.checkpoint``): :func:`save_state` writes the
 state's tree; :func:`restore_state` reads it back, or a ``TrainState`` the
 JAX trainer wrote (its layers and moments stacked ``[L, ...]``, converted
 with ``params_from_jax``).
+
+Data parallel: under ``ctx.mesh`` the step is the reference's launcher's
+(``--mesh``: the train state replicated, GSPMD partitioning the batch).
+Every rank holds the whole state (:func:`broadcast_state` copies rank 0's)
+and its rows of the global batch (:func:`rank_rows`, over the data axes);
+``Model.loss`` returns the global loss with each rank's share of its
+gradient, and the step sums the gradients over the data group, in
+buckets (``collectives.all_reduce_tree``), before ``ef_compress`` and the
+optimizer.  With experts over ``model``, a rank's expert-stack gradients
+hold its experts' rows only, and are summed over the model group too.
+Up to the order of f32 sums, the step is the one-process step on the
+concatenated batch; with ``grad_accum`` each rank splits its own rows, so
+micro-batch i is every rank's i-th block.
 """
 from __future__ import annotations
 
@@ -24,6 +37,7 @@ import torch
 from repro_torch import tree as T
 from repro_torch.distributed import checkpoint as CK
 from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as SH
 from repro_torch.models.layers import Ctx
 from repro_torch.models.transformer import params_from_jax
 from repro_torch.optim.adamw import AdamW
@@ -61,6 +75,51 @@ def init_state(model, optimizer: AdamW, seed: int = 0, *,
     ef = collectives.ef_init(params) if compress else None
     step = torch.zeros((), dtype=torch.int32, device=model.device)
     return TrainState(params=params, opt=opt, step=step, ef=ef)
+
+
+def broadcast_state(state: TrainState) -> TrainState:
+    """Every rank's state overwritten with rank 0's, in place (one
+    process: as it is)."""
+    collectives.broadcast_tree(state.tree())
+    return state
+
+
+def rank_rows(batch, ctx: Ctx):
+    """This rank's rows of a global batch under ``ctx.mesh``: the batch
+    dim cut into one block per data rank (``sharding.batch_spec``), the
+    first data axis major.  The global batch must divide by the data
+    ranks."""
+    mesh = ctx.mesh
+    if mesh is None:
+        return batch
+    dp = SH.dp_size(mesh)
+    if dp == 1:
+        return batch
+
+    def rows(x):
+        if x.shape[0] % dp:
+            raise ValueError(f"global batch {x.shape[0]} does not split "
+                             f"over {dp} data ranks")
+        return SH.local_shard(x, SH.batch_spec(mesh, x.ndim - 1,
+                                               x.shape[0]), mesh)
+    return T.map(rows, batch)
+
+
+def _is_expert_stack(path, leaf) -> bool:
+    return ("moe" in path and path[-1] == "w"
+            and path[-2] in ("wi", "wg", "wo") and leaf.ndim == 3)
+
+
+def sync_grads(grads, ctx: Ctx, bucket_bytes: int = 64 << 20):
+    """Each rank's gradient summed over the data group; expert stacks
+    also over the model group (a model rank's hold its experts' rows)."""
+    grads = collectives.all_reduce_tree(grads, ctx.data_group, bucket_bytes)
+    mg = ctx.model_group
+    if mg is None:
+        return grads
+    return T.map_with_path(
+        lambda path, g: (collectives.all_reduce(g.clone(), mg)
+                         if _is_expert_stack(path, g) else g), grads)
 
 
 def save_state(ckpt_dir: str, step: int, state: TrainState) -> str:
@@ -134,6 +193,8 @@ def make_train_step(model, optimizer: AdamW, ctx: Ctx, *,
             grads = T.map(lambda g: g / grad_accum, grads)
             loss = loss / grad_accum
 
+        if ctx.mesh is not None:
+            grads = sync_grads(grads, ctx)
         ef = state.ef
         if compress_grads:
             grads, ef = collectives.ef_compress(grads, ef, compress_block)

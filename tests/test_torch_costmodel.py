@@ -13,6 +13,12 @@ held where the aten map is one-to-one: the toys' forward passes (``tanh``,
 ``tanh_backward`` and ``pow_backward`` against JAX's ``mul``/``sub``
 chains) nor the models (the XLA-rounding transcriptions of
 ``core/xla_f32.py`` run many elementwise ops for one primitive).
+
+The reference's ``shard_map`` multiplier: llama4-smoke's ``moe_apply``
+counted on one rank of a (data, model) = (1, 2) mesh (two gloo ranks)
+reports the reference's single-device ``dot_flops`` and ``dot_traffic``:
+the expert block runs on half the experts and counts twice, the router
+outside it once.
 """
 import functools
 
@@ -181,3 +187,23 @@ def test_gemma2_smoke_forward_dot_counts_equal_reference():
     for k in KEYS:
         assert got[k] == want[k], (k, got[k], want[k])
     assert got["dots"] > want["dots"]    # executions, not equations
+
+
+def test_expert_parallel_block_counts_times_the_mesh_size(tmp_path):
+    from repro.configs import llama4_scout_17b_a16e as JL
+    from repro.models import layers as JLy
+    from repro.models.layers import Ctx as JCtx
+    from repro.numerics import NumericsContext as JN
+    from torch_ranks import moe_cost_rank, spawn
+    cfg = JL.SMOKE
+    jp = JLy.moe_init(jax.random.PRNGKey(1), cfg)
+    p = jax.tree.map(np.array, jp)
+    x = np.random.default_rng(0).standard_normal(
+        (2, 16, cfg.d_model)).astype(np.float32)
+    jctx = JCtx(numerics=JN.from_ecfg(JEC(mode="exact"), backend="exact"))
+    want = JCM.analyze(lambda pp, xx: JLy.moe_apply(pp, xx, jctx, cfg),
+                       jp, jnp.asarray(x))
+    got = spawn(moe_cost_rank, 2, tmp_path, p, x)
+    for counts in got:
+        for k in KEYS:
+            assert counts[k] == want[k], (k, counts[k], want[k])

@@ -197,6 +197,12 @@ def _kernel_scale(x: torch.Tensor, head: int = 0) -> np.float32:
     """The fused kernel's scale, emulated: per-thread f64 sums in the plan's
     order (a vector's four terms first added in f32 as (x + y) + (z + w))
     with exact counts, the fixed trees, then f32 as _pow2_scale."""
+    return _encode_scale(*_reduce_partials(x, head))
+
+
+def _reduce_partials(x: torch.Tensor, head: int = 0):
+    """The reduce launch, emulated: its per-block (f64 sum, int64 count)
+    partials."""
     ax = x.reshape(-1).to(torch.float32).abs()
     nz = (ax > 0).numpy()
     lg = torch.where(ax > 0, torch.log2(torch.clamp(ax, min=1e-38)),
@@ -219,11 +225,16 @@ def _kernel_scale(x: torch.Tensor, head: int = 0) -> np.float32:
             s += terms.astype(np.float64)
         return _tree(s.reshape(blocks, T)), _tree(c.reshape(blocks, T))
 
-    ps, pc = launch_sums(plan.reduce_blocks, TPC.RED_THREADS)
+    return launch_sums(plan.reduce_blocks, TPC.RED_THREADS)
+
+
+def _encode_scale(ps: np.ndarray, pc: np.ndarray) -> np.float32:
+    """The encode launch's scale from partials, emulated: thread t adds
+    partials t, t + T, ..., the fixed tree, then f32 as _pow2_scale."""
     T = TPC.ENC_THREADS
     a, k = np.zeros(T), np.zeros(T, dtype=np.int64)
-    for i in range(0, plan.reduce_blocks, T):   # thread t: t, t + T, ...
-        m = min(T, plan.reduce_blocks - i)
+    for i in range(0, len(ps), T):   # thread t: t, t + T, ...
+        m = min(T, len(ps) - i)
         a[:m] += ps[i:i + m]
         k[:m] += pc[i:i + m]
     total, count = _tree(a), _tree(k)
@@ -299,6 +310,41 @@ def test_kernel_reduction_ties_round_half_even(n, lo, hi, want):
     assert float(TE._pow2_scale(t)) == want
     for head in (0, 3):
         assert float(_kernel_scale(t, head)) == want
+
+
+def _split_scale(x: torch.Tensor, parts: int = 2) -> np.float32:
+    """The split entry's scale for ``x``'s rows cut into ``parts`` ranks'
+    tensors, emulated: each rank's reduce launch, its partials summed to
+    one (sum, count) pair (``posit_codec._launch_grouped``), the pairs
+    summed over the group, the encode launch on that one pair."""
+    total, count = np.float64(0.0), 0
+    for piece in torch.chunk(x, parts):
+        ps, pc = _reduce_partials(piece)
+        total += ps.sum()
+        count += int(pc.sum())
+    return _encode_scale(np.array([total]), np.array([count], np.int64))
+
+
+@pytest.mark.parametrize("n", [2, 4096, 65536, 1 << 20])
+@pytest.mark.parametrize("lo,hi,want", [(1.0, 2.0, 1.0), (2.0, 4.0, 4.0),
+                                        (0.5, 1.0, 1.0), (0.25, 0.5, 0.25)])
+def test_split_reduction_gives_the_whole_tensors_scale(n, lo, hi, want):
+    """The split entry over two halves of a tensor: the halves' partials
+    summed over the group round like _pow2_scale of the whole tensor,
+    on random tensors whose halves' own scales differ, and at .5 ties."""
+    rng = np.random.default_rng(n)
+    x = (rng.normal(size=(2, n)) * np.exp2(rng.integers(-9, 9, size=(2, n)))
+         ).astype(np.float32)
+    x[1] *= np.float32(2.0 ** 5)          # the second half's own scale
+    x[rng.random((2, n)) < 0.05] = 0.0
+    t = torch.from_numpy(x)
+    assert float(_split_scale(t)) == float(TE._pow2_scale(t))
+    assert float(_kernel_scale(t[0])) != float(TE._pow2_scale(t))
+    ties = np.full((2, n), lo, np.float32)
+    ties[:, 1::2] = -hi
+    t = torch.from_numpy(ties)
+    assert float(TE._pow2_scale(t)) == want
+    assert float(_split_scale(t)) == want
 
 
 # --------------------------------------------------------------------------

@@ -177,8 +177,11 @@ def test_launcher_resume_replays_bit_for_bit(tmp_path, capsys):
 def test_launcher_refuses_cuda_backend_and_meshes():
     with pytest.raises(RuntimeError, match="lax_ref"):
         train.main(SMOKE_ARGS + ["--steps", "1", "--backend", "cuda"])
-    for mesh in ("single", "multi"):
-        with pytest.raises(SystemExit, match="queue 1, multi-device"):
+    # the production meshes need their worlds (256 and 512 ranks); a
+    # world of one refuses them with the count it needs
+    for mesh, ranks in (("single", 256), ("multi", 512)):
+        with pytest.raises(SystemExit, match=f"launch {ranks} ranks.*"
+                                             "this world has 1"):
             train.main(SMOKE_ARGS + ["--mesh", mesh])
     assert train.parser().parse_args([]).arch == "hymba-1.5b"
     assert not train.parser().parse_args([]).smoke  # FULL unless --smoke
