@@ -4,7 +4,7 @@
 
 Phases (each asserts; a failed phase exits non-zero and prints no result):
 
-1. the card's name and power limit; build of the four CUDA sources from
+1. the card's name and power limit; build of the five CUDA sources from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the main path: posit encode (bit-exact, six formats with
@@ -23,16 +23,26 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    words), the served P16 format's decode table bit for bit against the
    plain decode, logmac over every 8- and 16-bit pattern (and 2^20
    32-bit words) as B with K = 1 and M in {1, 4, 33, 64}, equal to the
-   plain version, and logmac at P8, P16 and P32 for M in {1, 4, 5, 16,
-   17, 31, 32, 33} (the small-M kernel up to the crossover M = 32; above
-   it the tensor-core kernel at P8 and P16, the f32 tile kernel at P32),
-   at P8 and P16 also for M in {64, 65, 128, 200, 256} and at P32 for
-   M = 128, against the five gemma2-2b K x N shapes and a ragged one
+   plain version (the bf16-piece kernel, P32 above 32 rows, within
+   ``4 * 2^-24 * (|va||vb| + |ra||rb|)``), and logmac at P8, P16 and P32 L-21b for M in {1,
+   4, 5, 16, 17, 31, 32, 33} (the small-M kernel up to the crossover
+   M = 32; above it the fp16 tensor-core kernel at P8 and P16, the
+   bf16-piece tensor-core kernel at P32), at P8 and P16 also for M in
+   {64, 65, 128, 200, 256} and at P32 for M = 128, against the five
+   gemma2-2b K x N shapes and a ragged one
    (N % 4 != 0, K not a multiple of the split), at P16 for M in {1, 4,
    16, 128} against the ten K x N shapes of the mamba2-1.3b and
    hymba-1.5b paths and at P16 and P8 for M in {33, 64, 65, 128, 200,
    256} (256: the eval step of 3g) against hymba's, plus a misaligned B
-   base, per-element bound ``1e-5*(|va||vb| + |ra||rb|) + 1e-4``;
+   base, per-element bound ``1e-5*(|va||vb| + |ra||rb|) + 1e-4``; the
+   bf16-piece kernel at every format routed to it (P32 L-21b and L-22b,
+   the seven P16 variants but L-21b) for M in {33, 128, 256} and the tile
+   kernel at P32 L-21 and L-1b (unbounded; untruncated) for M in {33,
+   128}, K x N (300, 70), (2304, 9216), (9216, 2304) and the ragged one,
+   and at K = 300 on unit-scale words against rtol 1e-5 / atol 1e-4;
+   above 32 rows the first 33 rows of calls at M
+   in {33, 128, 129, 256, 512} bit-equal (fp16 kernel at P16 and P8 L-21b,
+   bf16-piece kernel at P32 L-21b, on [2304, 9216] and [2304, 2304]);
    paged flash-decode at the serving geometry and at a long context
    (max_len 4096, positions near 4000; windows None and 4096), max-abs
    <= 1e-3 against the plain version, < 0.05 against the gather
@@ -42,7 +52,9 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    the llama4-scout, musicgen-large and yi-6b weights and activations at
    their K (M in {1, 4, 32}), logmac at P16 for M in {1, 4, 32, 128} (the
    heads 4 and 32, llama4's [5120, 202048] among them), and paged decode
-   at (KV, G, hd) = (8, 5, 128), (32, 1, 64) and (8, 8, 128);
+   at (KV, G, hd) = (8, 5, 128), (32, 1, 64) and (8, 8, 128), then at
+   those on eight more draws, its distance from the plain version
+   reported and not held to 1e-3;
 3. the fused kernel's scale against torch's ``_pow2_scale`` for every
    weight of the seeded FULL model (26 x 7 projections and the head's
    operand), then serving gemma2-2b FULL (26 layers, d_model 2304, seeded
@@ -122,9 +134,10 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    metric within rtol 1e-5 of the port's CPU path, printed beside the
    paper's spot values; (b) ``with numerics.use(cfg, backend="cuda"):
    numerics.matmul(x, w)`` at gemma2-2b width, x [4 | 128, 2304], w [2304,
-   9216], for the eight variants at P16 and L-21b at P8, P32, P16 8_16
-   and P32 8_16_32: each call one pair of fused encodes and one logmac
-   (the kernel its plan picks), within the per-element bound of
+   9216], for the eight variants at P16, L-21b at P8 and P32, L-1b and
+   L-21 at P32, L-21b at P16 8_16 and P32 8_16_32: each call one pair of
+   fused encodes and one logmac (the kernel its plan picks: at M = 128
+   the fp16, bf16-piece or tile kernel), within the per-element bound of
    ``lax_ref``, its error metrics against the f64 product printed; (c) the
    quire at K = 9216: bposit16 words from the fused encode decoded by the
    decode kernel bit-equal to ``ref_decode`` on the CPU, and for 32
@@ -145,7 +158,10 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    parameters broadcast): every pre-scale (the fused encode's split
    entry, the reference engine's) bit-equal to the parent's one-process
    forward's, every logmac launch within its per-element bound of the
-   plain version, the logits' max |diff| and argmax agreement reported;
+   plain version and replayed with both ranks' rows stacked (the
+   one-process call's shape), the rank's rows of it bit-equal to the
+   rank's own result, the logits' max |diff| and argmax agreement
+   reported;
    (c) one data-parallel train step of hymba-1.5b at full width, cut to
    ``HYMBA_DP_LAYERS`` layers, on ``lax_ref``, global batch 2 x 128 over 2
    ranks, the two rows taking different local pre-scales: every pre-scale
@@ -167,11 +183,14 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    activation beside the parent route (torch's ``_pow2_scale``, ``/``,
    the plain encode launch) timed in the same run; logmac on the five
    gemma2-2b shapes at M=4 and at M=16, 32 and 128 (P8 and P32 at M=4
-   and 128), each row under the name of the kernel that ran it
-   (``logmac_small``, ``logmac_mma``, ``logmac_tile``), the mma kernel's
-   bound at fp16's rate and the f32 tile kernel timed beside it on the
-   same inputs, with the floor its decode instructions set at the issue
-   rate (SASS of a probe built from the kernel's ``logmac_decode.cuh``),
+   and 128; P32 L-21b at M=128 on all five shapes, P16 L-1b and P32 L-21
+   at M=128 on the MLP shape), each row under the name of the kernel that
+   ran it (``logmac_small``, ``logmac_mma``, ``logmac_pieces``,
+   ``logmac_tile``), the tensor-core kernels' bounds at the tensor cores'
+   rate for their products and the f32 tile kernel timed beside them on
+   the same inputs, with the floor the decode instructions of an L-21b
+   format set at the issue rate (SASS of a probe built from the kernels'
+   ``logmac_decode.cuh``),
    paged decode
    (the whole call: q's pre-scale and encode, then the three passes) at
    the serving positions, near the end of max_len 256 and at a 4096
@@ -210,8 +229,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory 3.35 TB/s,
-# float32 outside the tensor cores 67 TFLOP/s, fp16 on the tensor cores
-# 989 TFLOP/s (logmac's mma kernel).
+# float32 outside the tensor cores 67 TFLOP/s, fp16 and bf16 on the tensor
+# cores 989 TFLOP/s (logmac's two tensor-core kernels).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 FP16_FLOPS = 989e12
@@ -247,8 +266,9 @@ ZOO_K = sorted({K for kns in ZOO_KN.values() for K, _, _ in kns})
 PAGED_GEOMS = [(8, 5, 128), (32, 1, 64), (8, 8, 128)]
 # phase 3h's depth: llama4-scout at full width holds 7.73 GiB of f32
 # weights a layer and 3.86 GiB of embedding; 4 layers peaked at 48.77 GiB
-# of the card's 79.18, so 6 leave about 15 GiB (PERF.md section 4)
-LLAMA4_LAYERS = 6
+# of the card's 79.18 and 6 at 64.26 (PERF.md section 4), but 6 took
+# about 115 s of the run's 1200; 4 keep the whole run well inside it
+LLAMA4_LAYERS = 4
 
 # torch kernels of the kinds ``_pow2_scale`` and its divide run: abs, the
 # compare, clamp, log2, where, the sums, exp2, round, the divide, the fill
@@ -590,6 +610,7 @@ def phase_numerics(dev, gen, card: str, path_launches, logmac_kernel,
     w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
     cfgs = ([from_variant(16, v) for v in VARIANT_NAMES]
             + [from_variant(8, "L-21b"), from_variant(32, "L-21b"),
+               from_variant(32, "L-1b"), from_variant(32, "L-21"),
                from_variant(16, "L-21b", simd="8_16"),
                from_variant(32, "L-21b", simd="8_16_32")])
     api_launches = dict.fromkeys(_build.LAUNCHES, 0)
@@ -776,8 +797,9 @@ DP_BATCH = (4, 128)
 # parameters).  At 16 layers a rank peaked at 27.92 GiB, rank 0's
 # one-process references included (PERF.md, 3l): about 1.6 GiB a layer,
 # so two ranks of 20 layers take about 69 of the card's 79 GiB and 24
-# would not fit
-HYMBA_DP_LAYERS = 20
+# would not fit; 20 took about 240 s with the rest of 3l, so 12 keep the
+# whole run well inside its 1200 s
+HYMBA_DP_LAYERS = 12
 EP_TOKENS = (4, 128)
 RANKS_DIR = os.path.join(HERE, "build", "chip_smoke_ranks")
 
@@ -833,11 +855,13 @@ def _l21b(backend: str, **kw):
 
 class _Checks(list):
     """Each logmac launch's max |diff| from its plain version; ``split``
-    counts the split encodes held against theirs."""
+    counts the split encodes held against theirs; ``stacked`` (a list in a
+    data rank) the logmac calls replayed with every rank's rows stacked."""
 
-    def __init__(self):
+    def __init__(self, stacked: bool = False):
         super().__init__()
         self.split = []
+        self.stacked = [] if stacked else None
 
 
 def recording(bound_checks: _Checks | None = None, moved: list | None = None):
@@ -846,9 +870,12 @@ def recording(bound_checks: _Checks | None = None, moved: list | None = None):
     with ``bound_checks`` holds each logmac launch against its plain
     version within the per-element bound, appending the max |diff|, and
     each split encode (an operand whose rows are split over a group)
-    against its plain version bit for bit.  With ``moved``, appends for
-    each engine pre-scale taken over a group whether the rank's own rows
-    alone would give another."""
+    against its plain version bit for bit.  With ``bound_checks.stacked``,
+    replays each logmac call with every rank's rows stacked in rank order
+    (the one-process call's shape) and holds this rank's rows of it to the
+    rank's own result bit for bit; the replay's launches are not counted.
+    With ``moved``, appends for each engine pre-scale taken over a group
+    whether the rank's own rows alone would give another."""
     import torch
     from repro_torch.core import engine as E
     from repro_torch.kernels import logmac as LM
@@ -894,6 +921,27 @@ def recording(bound_checks: _Checks | None = None, moved: list | None = None):
                 assert bool((diff <= bound).all()), "logmac outside bound"
                 worst = max(worst, float(diff.max()))
             bound_checks.append(worst)
+            if bound_checks.stacked is not None:
+                import torch.distributed as dist
+                from repro_torch.kernels import _build
+                M, world = a.shape[0], dist.get_world_size()
+                rows = torch.empty((world * M, a.shape[1]), dtype=a.dtype,
+                                   device=a.device)
+                dist.all_gather_into_tensor(rows, a.contiguous())
+                counts = ({k: dict(v) for k, v in
+                           _build.WIDTH_LAUNCHES.items()},
+                          dict(_build.LAUNCHES))
+                whole = lm(rows, b, ecfg)
+                for k, v in counts[0].items():
+                    _build.WIDTH_LAUNCHES[k].clear()
+                    _build.WIDTH_LAUNCHES[k].update(v)
+                _build.LAUNCHES.update(counts[1])
+                r0 = dist.get_rank() * M
+                assert torch.equal(whole[r0:r0 + M].view(torch.int32),
+                                   out.view(torch.int32)), (
+                    f"logmac [{M}, {a.shape[1]}] x {list(b.shape)}: this "
+                    f"rank's rows differ in the {world * M}-row call")
+                bound_checks.stacked.append(world * M)
             return out
 
         PC.posit_encode_prescaled, E._pow2_scale = enc_spy, p2_spy
@@ -1011,11 +1059,13 @@ def dp_forward_rank(rank, ids_np):
     bcast_s = time.perf_counter() - t0
     ids = rank_rows({"ids": torch.from_numpy(ids_np).cuda()}, ctx)["ids"]
     C.reset_bytes()
-    checks = _Checks()
+    checks = _Checks(stacked=True)
     t0 = time.perf_counter()
     logits, rec, launches = gemma_forward(model, params, ids, ctx, checks)
     return {"logits": logits.cpu(), "scales": rec, "launches": launches,
             "bound_checks": len(checks), "worst": max(checks),
+            "stacked": sorted(set(checks.stacked)),
+            "stacked_checks": len(checks.stacked),
             "split_checked": len(checks.split),
             "bytes": dict(C.BYTES), "bcast_s": bcast_s,
             "forward_s": time.perf_counter() - t0,
@@ -1242,6 +1292,7 @@ def phase_multi_device(card: str, path_launches) -> dict:
         assert r["launches"]["posit_encode_prescaled"] > 0
         assert r["launches"]["logmac"] > 0
         assert r["split_checked"] > 0
+        assert r["stacked_checks"] == r["bound_checks"] > 0
     diff = float((got - ref_logits).abs().max())
     agree = float((got[..., :vocab].argmax(-1)
                    == ref_logits[..., :vocab].argmax(-1)).float().mean())
@@ -1254,9 +1305,14 @@ def phase_multi_device(card: str, path_launches) -> dict:
         f" {b[0]['bound_checks']} logmac contractions a rank within the "
         f"per-element bound (max |diff| {max(r['worst'] for r in b):.3g}),"
         f" {b[0]['split_checked']} split encodes a rank (scale and words) "
-        f"bit-equal to their plain version over the group;"
+        f"bit-equal to their plain version over the group; each rank's "
+        f"rows of its {b[0]['stacked_checks']} logmac calls bit-equal to the "
+        f"same rows of the call with both ranks' rows stacked (M "
+        f"{b[0]['stacked']});"
         f" logits max |diff| {diff:.4g}, argmax agreement {agree:.4f} over "
-        f"26 layers; rank 0's launches {b[0]['launches']}, one-process "
+        f"26 layers (before the row-count-free split: 0.1112 and "
+        f"0.9668; attention's batched contractions still run cuBLAS on the "
+        f"reference engine); rank 0's launches {b[0]['launches']}, one-process "
         f"{ref_launch}; collective bytes a rank {b[0]['bytes']}; "
         f"broadcast of the parameters {b[0]['bcast_s']:.2f} s; forward "
         f"(with the checks) {[round(r['forward_s'], 2) for r in b]} s; "
@@ -1367,8 +1423,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     from repro_torch.core import posit as P
-    from repro_torch.core.engine import (_pow2_scale, euler_dot_general,
-                                         from_variant)
+    from repro_torch.core.engine import (VARIANT_NAMES, _pow2_scale,
+                                         euler_dot_general, from_variant)
     from repro_torch.kernels import logmac as LM
     from repro_torch.kernels import ops as OPS
     from repro_torch.kernels import paged_decode as PD
@@ -1407,18 +1463,20 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     ecfg = from_variant(16, "L-21b")
-    # logmac's three kernels are held and listed one by one: the small-M
-    # kernel (M <= 32), the tensor-core kernel (M > 32, P8/P16) and the f32
-    # tile kernel (M > 32, P32)
+    # logmac's four kernels are held and listed one by one: the small-M
+    # kernel (M <= 32), the fp16 tensor-core kernel (M > 32, P8/P16
+    # L-21b), the bf16-piece tensor-core kernel (M > 32, P32 L-21b and
+    # L-22b, the other P16 variants) and the f32 tile kernel (M > 32, what
+    # both refuse: unbounded P32, P32 without truncation)
     errs = {"posit_encode": 0.0, "posit_encode_prescaled": 0.0,
             "posit_decode": 0.0, "logmac_small": 0.0, "logmac_mma": 0.0,
-            "logmac_tile": 0.0, "paged_flash_decode": 0.0}
+            "logmac_pieces": 0.0, "logmac_tile": 0.0,
+            "paged_flash_decode": 0.0}
     total_launches = dict.fromkeys(_build.LAUNCHES, 0)
 
     def logmac_kernel(M, N, K, wcfg) -> str:
         """The launch counter of the logmac kernel that runs this product."""
-        return LM.KERNEL_OF[LM._plan(M, N, K, LM.mma_key(wcfg.posit,
-                                                         wcfg)).kind]
+        return LM.KERNEL_OF[LM.plan_of(M, N, K, wcfg).kind]
 
     def path_launches(what: str) -> dict:
         """The counts since the last reset, added to the run's total."""
@@ -1639,8 +1697,13 @@ def main(argv=None) -> int:
     # every 8- and 16-bit pattern, and 2^20 random 32-bit words (0 and NaR
     # among them), as a one-row B with K = 1: each output is one product
     # per plane, so the kernels (small-M, vector and scalar loads; above
-    # M = 32 the tensor-core kernel at P8/P16, the tile kernel at P32) must
-    # equal the plain version exactly
+    # M = 32 the fp16 tensor-core kernel at P8/P16) must equal the plain
+    # version exactly; the bf16-piece kernel (P32 above M = 32) adds five
+    # exact piece products where the plain version rounds two, so both lie
+    # a few roundings from the exact value: it is held to
+    # |got - want| <= 4 * 2^-24 * (|va||vb| + |ra||rb|), with no absolute
+    # term
+    k1_pieces = 0.0
     for width in (8, 16, 32):
         wcfg = from_variant(width, "L-21b")
         if width < 32:
@@ -1655,19 +1718,34 @@ def main(argv=None) -> int:
             for M in (1, 4, 33, 64):
                 a = bits((M, 1), wcfg.posit)
                 got = LM.logmac(a, b, wcfg)
-                bad = int((got != LM.logmac_plain(a, b, wcfg)).sum())
+                want = LM.logmac_plain(a, b, wcfg)
+                if logmac_kernel(M, b.shape[1], 1, wcfg) == "logmac_pieces":
+                    va, ra = LM.decode_planes(a, wcfg)
+                    vb, rb = LM.decode_planes(b, wcfg)
+                    mag = va.abs() @ vb.abs() + ra.abs() @ rb.abs()
+                    diff = (got - want).abs()
+                    assert bool((diff <= 4 * 2.0 ** -24 * mag).all()), (
+                        f"logmac P{width} M={M} over 2^20 words: more than "
+                        f"4 * 2^-24 of the products' magnitudes")
+                    k1_pieces = max(k1_pieces, float(
+                        (diff / mag.clamp(min=2.0 ** -126)).max()))
+                    continue
+                bad = int((got != want).sum())
                 assert bad == 0, (f"logmac P{width} M={M} over every "
                                   f"pattern: {bad} outputs differ")
-    log("[logmac] every 8/16-bit pattern and 2^20 32-bit words through B "
-        "(M in (1, 4, 33, 64), N % 4 == 0 and != 0): equal to the plain "
-        "version")
+    log(f"[logmac] every 8/16-bit pattern and 2^20 32-bit words through B "
+        f"(M in (1, 4, 33, 64), N % 4 == 0 and != 0): equal to the plain "
+        f"version; P32 at M = 33, 64 (the bf16-piece kernel) within 4 * "
+        f"2^-24 of |va||vb| + |ra||rb| (largest {k1_pieces * 2**24:.3g} "
+        f"* 2^-24)")
 
     # P16 is the served width; P8 is the ladder's width and P32 the guard's
     # escalation width, each encoded by the encode kernel at that width.
     # M: decode batches (1, 4, 5), prefill buckets (16, 32) and their
     # neighbours, the crossover (32 | 33), and above it the tensor-core
     # kernel's row tiles (64 | 65) and prefill, eval and ragged M at P8 and
-    # P16 (P32 keeps the tile kernel: 33 and the 128-token bucket)
+    # P16 (P32 L-21b, on the bf16-piece kernel above 32 rows: 33 and the
+    # 128-token bucket)
     assert LM.SMALL_M_MAX == 32, LM.SMALL_M_MAX
     logmac_ms = (1, 4, 5, 16, 17, 31, 32, 33)
     mma_ms = (64, 65, 128, 200, 256)
@@ -1720,7 +1798,7 @@ def main(argv=None) -> int:
             f"{errs['logmac_tile']:.3g})")
     # the mamba2-1.3b and hymba-1.5b shapes (phase 3f) at the served P16:
     # decode M = 1 and 4, a prefill M = 16 and the 128-token bucket (the
-    # tile kernel); the plan's split and K step follow (M, N, K).  hymba's
+    # tensor-core kernel); the plan's split and K step follow (N, K).  hymba's
     # shapes also at M = 256, the eval step of phase 3g (batch 2 x seq 128)
     # hymba's shapes also at the tensor-core kernel's M, at P16 and P8
     new_ms = (1, 4, 16, 128)
@@ -1777,6 +1855,76 @@ def main(argv=None) -> int:
         f"{worst:.3g}; small / mma {errs['logmac_small']:.3g} / "
         f"{errs['logmac_mma']:.3g})")
 
+    # the bf16-piece kernel on every format routed to it (P32 L-21b and
+    # L-22b, the P16 variants but L-21b), at M in {33, 128, 256}: K = 300,
+    # gemma2-2b's MLP shapes and the ragged one against the per-element
+    # bound, and at K = 300 words of unit-scale values (the JAX suite's
+    # data for this bar) against the flat bar rtol 1e-5 / atol 1e-4: on
+    # the spread words the sums reach ~10^3, where one ulp passes atol and
+    # no other summation order meets the flat bar; the tile kernel on the
+    # formats it keeps (unbounded P32, P32 without truncation), at M in
+    # {33, 128}
+    # their own generator, so the phases after them draw the inputs they
+    # drew before these checks were added
+    gen21 = torch.Generator(device=dev)
+    gen21.manual_seed(21)
+    pieces_cfgs = [c for c in ([from_variant(16, v) for v in VARIANT_NAMES]
+                               + [from_variant(32, v) for v in VARIANT_NAMES])
+                   if logmac_kernel(128, 9216, 2304, c) == "logmac_pieces"]
+    assert len(pieces_cfgs) == 9, [c.variant for c in pieces_cfgs]
+    tile_cfgs = [from_variant(32, "L-21"), from_variant(32, "L-1b")]
+    for wcfg in pieces_cfgs + tile_cfgs:
+        tile = wcfg in tile_cfgs
+        ms_p = (33, 128) if tile else (33, 128, 256)
+        want_kind = "logmac_tile" if tile else "logmac_pieces"
+        what = f"P{wcfg.width} {wcfg.variant}"
+        for K, N in [(300, 70), (2304, 9216), (9216, 2304), ragged]:
+            b = random_words((K, N), wcfg.posit, gen21)
+            planes_b = abs_planes(b, wcfg)
+            for M in ms_p:
+                assert logmac_kernel(M, N, K, wcfg) == want_kind, what
+                a = random_words((M, K), wcfg.posit, gen21)
+                worst = max(worst, check_logmac(
+                    a, b, wcfg, planes_b, f"{what} M={M} K={K} N={N}"))
+                if K == 300:
+                    au, bu = (PC.posit_encode(torch.randn(
+                        s, generator=gen21, device=dev), wcfg.posit)
+                        for s in ((M, K), (K, N)))
+                    torch.testing.assert_close(
+                        LM.logmac(au, bu, wcfg),
+                        LM.logmac_plain(au, bu, wcfg), rtol=1e-5, atol=1e-4)
+            del b, planes_b
+    log(f"[logmac] the bf16-piece kernel at "
+        f"{[f'P{c.width} {c.variant}' for c in pieces_cfgs]}, M in (33, 128, "
+        f"256), and the tile kernel at P32 L-21 and L-1b, M in (33, 128), "
+        f"on K x N (300, 70), (2304, 9216), (9216, 2304), {ragged}: within "
+        f"the per-element bound, two launches bit-identical (pieces "
+        f"{errs['logmac_pieces']:.3g}, tile {errs['logmac_tile']:.3g}); at "
+        f"K = 300 on unit-scale words within rtol 1e-5, atol 1e-4")
+    # above 32 rows a row's result does not depend on the rows beside it:
+    # the first 33 rows of calls at every M bit-equal, for the fp16 kernel
+    # at P16 and P8 L-21b and the bf16-piece kernel at P32 L-21b
+    for width, kernel in ((16, "logmac_mma"), (8, "logmac_mma"),
+                          (32, "logmac_pieces")):
+        wcfg = from_variant(width, "L-21b")
+        for K, N in ((2304, 9216), (2304, 2304)):
+            b = random_words((K, N), wcfg.posit, gen21)
+            a = random_words((512, K), wcfg.posit, gen21)
+            first = None
+            for M in (33, 128, 129, 256, 512):
+                assert logmac_kernel(M, N, K, wcfg) == kernel
+                out = LM.logmac(a[:M], b, wcfg)
+                rows = out[:33].view(torch.int32)
+                first = rows if first is None else first
+                assert torch.equal(rows, first), (
+                    f"logmac P{width} [{K}, {N}]: the first 33 rows at "
+                    f"M={M} differ from M=33")
+            del a, b
+    log("[logmac] rows independent of the row count: the first 33 rows of "
+        "M in (33, 128, 129, 256, 512) bit-equal at P16 and P8 L-21b (fp16 "
+        "kernel) and P32 L-21b "
+        "(bf16-piece kernel) on [2304, 9216] and [2304, 2304]")
+
     # paged flash-decode at the serving geometry, then at a long context
     B, KV, G, hd, ps, max_len = 4, 4, 2, 288, 16, 256
     pc16 = P.BPOSIT16
@@ -1791,9 +1939,10 @@ def main(argv=None) -> int:
                 nxt += 1
         return tab.to(dev)
 
-    def kv_pool(num_pages, KV=KV, hd=hd):
-        kf = torch.randn((num_pages, ps, KV, hd), generator=gen, device=dev)
-        vf = torch.randn((num_pages, ps, KV, hd), generator=gen, device=dev)
+    def kv_pool(num_pages, KV=KV, hd=hd, g=None):
+        g = gen if g is None else g
+        kf = torch.randn((num_pages, ps, KV, hd), generator=g, device=dev)
+        vf = torch.randn((num_pages, ps, KV, hd), generator=g, device=dev)
         kf[:PD.RESERVED_PAGES] = 0
         vf[:PD.RESERVED_PAGES] = 0
         return (P.to_storage(P.encode_from_float(kf, pc16), pc16).contiguous(),
@@ -1865,6 +2014,41 @@ def main(argv=None) -> int:
                         f"KV={KVg} G={Gg} hd={hdg}, window={window}",
                         softcap=None, ref_bar=None)
         del kp_g, vp_g
+    # the same geometries on eight more draws, each kernel output against
+    # its plain version, reported and not held to the 1e-3 bar: the bar
+    # above holds on its own draw, and on others (at (8, 8, 128), window
+    # 24, 1.19e-3) kernel and plain version may encode a probability one
+    # posit step apart, where a score differs in its last bit (ROADMAP
+    # queue 3); two launches bit-identical and finite outputs are gated
+    gen_pd = torch.Generator(device=dev)
+    spread = {}
+    for seed in range(1, 9):
+        gen_pd.manual_seed(seed)
+        for KVg, Gg, hdg in PAGED_GEOMS:
+            kp_g, vp_g = kv_pool(PD.RESERVED_PAGES + B * nlp, KVg, hdg, gen_pd)
+            q_g = torch.randn((B, 1, KVg * Gg, hdg), generator=gen_pd,
+                              device=dev)
+            for window in (None, 24):
+                kw_c = dict(kw, softcap=None)
+                got = PD.paged_flash_decode(q_g, kp_g, vp_g, table, pos,
+                                            window, **kw_c)
+                again = PD.paged_flash_decode(q_g, kp_g, vp_g, table, pos,
+                                              window, **kw_c)
+                assert torch.equal(got.view(torch.int32),
+                                   again.view(torch.int32)), (
+                    f"paged decode seed {seed}: two launches differ")
+                assert bool(torch.isfinite(got).all())
+                want = PD.paged_flash_decode_plain(q_g, kp_g, vp_g, table,
+                                                   pos, window, **kw_c)
+                spread.setdefault((KVg, Gg, hdg, window), []).append(
+                    float((got - want).abs().max()))
+            del kp_g, vp_g
+    log("[paged_decode] eight more draws (seeds 1-8) at the phase 3h, 3i and "
+        "chameleon-34b geometries, max|kernel-plain| a draw, not gated (the "
+        "1e-3 bar holds on the draw above only): " + "; ".join(
+            f"(KV, G, hd) {k[:3]} window={k[3]}: max {max(v):.3g}, "
+            f"{sum(d > 1e-3 for d in v)} of {len(v)} over 1e-3"
+            for k, v in spread.items()))
 
     phase_start("3")
     # ---- phase 3: serve gemma2-2b FULL through the launcher -------------
@@ -2664,7 +2848,8 @@ def main(argv=None) -> int:
     phase_start("3k")
     # ---- phase 3k: the public numerics API and the paper's arithmetic ---
     got = phase_numerics(dev, gen, card, path_launches, logmac_kernel)
-    assert got["posit_decode"] == 4 and got["logmac"] == 24, got
+    # 14 configurations at two row counts, one logmac each
+    assert got["posit_decode"] == 4 and got["logmac"] == 28, got
     # the first two examples, each with its own assertions
     from repro_torch.examples import mixed_precision, quickstart
     _build.reset_launches()
@@ -2763,15 +2948,18 @@ def main(argv=None) -> int:
                  "ms": dec_ms, "device_ms": dec_dev, "plain_ms": dec_plain})
     del pw
     # logmac: every projection shape at decode width (M=4) at P16, the
-    # prefill buckets (M=16, 32) and the 128-token bucket (M=128: the
-    # tensor-core kernel at P16 and P8, the tile kernel at P32) on the MLP
-    # shape, and decode width at the ladder's P8 and the guard's P32 (4 B
-    # per weight word at every width, so one byte formula; the mma kernel's
-    # operations at fp16's rate, the others' at f32's).  floor_ms: the
-    # SASS instructions that decode the K*N weight words, issued at one per
-    # lane per clock (4 x 32 lanes per SM) at the card's top SM clock.
-    # Beside each mma row, the f32 tile kernel (unchanged since it took
-    # every M > 32) on the same inputs
+    # prefill buckets (M=16, 32) and the 128-token bucket (M=128: the fp16
+    # tensor-core kernel at P16 and P8 L-21b, the bf16-piece kernel at P32
+    # L-21b on all five shapes and at P16 L-1b, the tile kernel at the
+    # unbounded P32 L-21) on the MLP shape, and decode width at the
+    # ladder's P8 and the guard's P32 (4 B per weight word at every width,
+    # so one byte formula; the fp16 kernel's operations, 2 x 2MNK, at
+    # fp16's rate, the bf16-piece kernel's piece products at bf16's, the
+    # others' at f32's).  floor_ms: the SASS instructions that decode the
+    # K*N weight words of an L-21b format, issued at one per lane per clock
+    # (4 x 32 lanes per SM) at the card's top SM clock.  Beside each mma and
+    # pieces row, the f32 tile kernel (unchanged since it took every
+    # M > 32) on the same inputs
     tile_fn = _build.function("logmac", "logmac_launch",
                               [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
                               + [ctypes.c_void_p])
@@ -2786,16 +2974,21 @@ def main(argv=None) -> int:
 
     def logmac_row(M, K, N, wcfg, what, reps=10, plain_reps=3):
         a, b = bits((M, K), wcfg.posit), bits((K, N), wcfg.posit)
-        plan = LM._plan(M, N, K, LM.mma_key(wcfg.posit, wcfg))
+        plan = LM.plan_of(M, N, K, wcfg)
+        products = (sum(p * p for p in plan.pieces) if plan.kind == "pieces"
+                    else 2)
         row = {"name": LM.KERNEL_OF[plan.kind], "route": "cuda",
-               "source": "src/repro_torch/kernels/csrc/logmac.cu",
+               "source": "src/repro_torch/kernels/csrc/" + (
+                   "logmac_pieces.cu" if plan.kind == "pieces"
+                   else "logmac.cu"),
                "replaces": "src/repro/kernels/logmac.py:136",
-               "shape": f"{what}P{wcfg.width} M={M} K={K} N={N} ("
-                        f"{plan.kind}, {plan.blocks(N, M)} blocks, "
-                        f"S={plan.splits})",
+               "shape": f"{what}P{wcfg.width} {wcfg.variant} M={M} K={K} "
+                        f"N={N} ({plan.kind}, {plan.blocks(N)} blocks a row "
+                        f"tile, S={plan.splits})",
                "bytes": (M * K + K * N + M * N) * 4,
-               "flops": 4 * M * N * K,
-               "peak": FP16_FLOPS if plan.kind == "mma" else FP32_FLOPS,
+               "flops": 2 * products * M * N * K,
+               "peak": (FP16_FLOPS if plan.kind in ("mma", "pieces")
+                        else FP32_FLOPS),
                "ms": time_ms(lambda: LM.logmac(a, b, wcfg), reps=reps,
                              flush=flush),
                "device_ms": time_ms(lambda: LM.logmac(a, b, wcfg),
@@ -2804,8 +2997,10 @@ def main(argv=None) -> int:
                "plain_ms": time_ms(lambda: LM.logmac_plain(a, b, wcfg),
                                    reps=plain_reps, flush=flush),
                "floor_ms": instr[wcfg.width] * K * N
-               / (sms * 128 * clk_mhz * 1e6) * 1e3}
-        if plan.kind == "mma":
+               / (sms * 128 * clk_mhz * 1e6) * 1e3
+               if wcfg.variant == "L-21b" else None}
+        if plan.kind in ("mma", "pieces"):
+            row["f32_flops"] = 4 * M * N * K
             row["tile_device_ms"] = time_ms(lambda: tile_kernel(a, b, wcfg),
                                             reps=reps, flush=flush,
                                             device_only=True)
@@ -2821,14 +3016,17 @@ def main(argv=None) -> int:
     log(f"[floor] {card}: SASS instructions per decoded word {instr} "
         f"(L-21b; P8, P16 by table); {sms} SMs at {clk_mhz:.0f} MHz")
     mlp = (2304, 9216)
-    shapes = ([(16, 4, *mlp)] + [(16, 4, K, N) for K, N in GEMMA_KN
-                                 if (K, N) != mlp]
-              + [(16, M, *mlp) for M in (16, 32, 128)]
-              + [(8, 4, *mlp), (32, 4, *mlp), (8, 128, *mlp),
-                 (32, 128, *mlp)])
-    for width, M, K, N in shapes:
+    others = [kn for kn in GEMMA_KN if kn != mlp]
+    shapes = ([(16, "L-21b", 4, *mlp)]
+              + [(16, "L-21b", 4, K, N) for K, N in others]
+              + [(16, "L-21b", M, *mlp) for M in (16, 32, 128)]
+              + [(8, "L-21b", 4, *mlp), (32, "L-21b", 4, *mlp),
+                 (8, "L-21b", 128, *mlp), (32, "L-21b", 128, *mlp)]
+              + [(32, "L-21b", 128, K, N) for K, N in others]
+              + [(16, "L-1b", 128, *mlp), (32, "L-21", 128, *mlp)])
+    for width, variant, M, K, N in shapes:
         big = N > 100000
-        logmac_row(M, K, N, from_variant(width, "L-21b"), "",
+        logmac_row(M, K, N, from_variant(width, variant), "",
                    reps=5 if big else 10, plain_reps=2 if big else 3)
     # the fused encode and logmac (P16, decode width M=4) at the weight
     # shapes of the mamba2-1.3b and hymba-1.5b paths (phase 3f), at the
@@ -2977,10 +3175,11 @@ def main(argv=None) -> int:
         r["bound_ms"] = max(bb, bo)
         r["bound_by"] = "bytes" if bb >= bo else "operations"
         extra = ""
-        if "floor_ms" in r:
+        if r.get("floor_ms") is not None:
             extra += f", decode-instruction floor {r['floor_ms']:.4f} ms"
         if "tile_device_ms" in r:
-            extra += (f", f32 bound {max(bb, r['flops'] / FP32_FLOPS * 1e3):.4f}"
+            extra += (f", {r['flops']:.4g} tensor-core operations; f32 bound "
+                      f"{max(bb, r['f32_flops'] / FP32_FLOPS * 1e3):.4f}"
                       f" ms; the f32 tile kernel on the same inputs "
                       f"{r['tile_device_ms']:.4f} ms device time")
         plain = ("not measured" if r["plain_ms"] is None
@@ -2996,12 +3195,14 @@ def main(argv=None) -> int:
 
     kernels = []
     # each kernel's first row: the encodes and logmac at the MLP shape
-    # (small-M: P16 M=4; mma: P16 M=128; tile: P32 M=128), paged decode at
-    # the serving positions
+    # (small-M: P16 M=4; mma: P16 M=128; pieces: P32 L-21b M=128; tile:
+    # P32 L-21 M=128), paged decode at the serving positions
     for name in ("posit_encode", "posit_encode_prescaled", "posit_decode",
-                 "logmac_small", "logmac_mma", "logmac_tile",
-                 "paged_flash_decode"):
+                 "logmac_small", "logmac_mma", "logmac_pieces",
+                 "logmac_tile", "paged_flash_decode"):
         r = next(r for r in rows if r["name"] == name)
+        if name.startswith("logmac_"):
+            assert total_launches[name] > 0, f"{name}: no launch on a path"
         kernels.append({
             "name": name, "route": r["route"], "source": r["source"],
             "replaces": r["replaces"], "launches": total_launches[name],

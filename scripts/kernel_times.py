@@ -20,7 +20,10 @@ M=128 on the MLP shape and M=256 on hymba-1.5b's seven eval shapes
 it exists, the f32 tile kernel before), with ``torch.matmul`` of the
 already-decoded fp16 planes ``[va | ra] @ [vb ; -rb]`` at the same
 shapes as a yardstick of the product alone (not the same function: the
-decode is done beforehand and the output is fp16), and one paged
+decode is done beforehand and the output is fp16); logmac at P16 L-21b
+on gemma2's four projection shapes at M=256 and 512; logmac at M=128 at P32 L-21b on the five gemma2-2b shapes and at
+P16 L-1b on the MLP shape (the bf16-piece kernel where the checkout has
+it, the f32 tile kernel before); and one paged
 flash-decode call at the serving geometry (B=4,
 KV=4, G=2, hd=288, page 16, uint16 words, positions 21-40, window 4096), each with the same seeded inputs, as the
 mean of 10 calls timed with CUDA events (L2 flushed first) by
@@ -129,6 +132,20 @@ def main(argv=None) -> int:
         rows[f"torch.matmul fp16 planes M={M} K={K} N={N}"] = both(
             lambda: torch.matmul(a16, b16))
         del a16, b16
+    for M in (256, 512):
+        for K, N in GEMMA_KN[:4]:
+            a, b = bits((M, K), ecfg.posit), bits((K, N), ecfg.posit)
+            rows[f"logmac P16 M={M} K={K} N={N}"] = both(
+                lambda: LM.logmac(a, b, ecfg))
+            del a, b
+    for width, variant, kns in ((32, "L-21b", GEMMA_KN),
+                                (16, "L-1b", GEMMA_KN[:1])):
+        wcfg = from_variant(width, variant)
+        for K, N in kns:
+            a, b = bits((128, K), wcfg.posit), bits((K, N), wcfg.posit)
+            rows[f"logmac P{width} {variant} M=128 K={K} N={N}"] = both(
+                lambda: LM.logmac(a, b, wcfg))
+            del a, b
     B, KV, G, hd, ps, nlp = 4, 4, 2, 288, 16, 16
     pos = torch.tensor([40, 33, 27, 21], dtype=torch.int32, device=dev)
     table = torch.zeros((B, nlp), dtype=torch.int32)

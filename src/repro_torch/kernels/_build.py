@@ -23,7 +23,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("posit_encode", "posit_decode", "logmac", "paged_decode")
+SOURCES = ("posit_encode", "posit_decode", "logmac", "logmac_pieces",
+           "paged_decode")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # REPRO_TORCH_NVCC_VERBOSE=1 adds -Xptxas -v and prints each kernel's
@@ -138,11 +139,12 @@ def check(err: int, what: str) -> None:
 # wrapper call counts one launch however many kernels it starts.
 # ``WIDTH_LAUNCHES`` splits the same launches by posit word width.
 # ``logmac`` counts every logmac launch, and ``logmac_small``,
-# ``logmac_mma`` and ``logmac_tile`` the same launches by the kernel that
-# ran (``kernels/logmac.py: _plan``).
+# ``logmac_mma``, ``logmac_pieces`` and ``logmac_tile`` the same launches
+# by the kernel that ran (``kernels/logmac.py: _plan``).
 LAUNCHES = {"posit_encode": 0, "posit_encode_prescaled": 0,
             "posit_decode": 0, "logmac": 0, "logmac_small": 0,
-            "logmac_mma": 0, "logmac_tile": 0, "paged_flash_decode": 0}
+            "logmac_mma": 0, "logmac_pieces": 0, "logmac_tile": 0,
+            "paged_flash_decode": 0}
 WIDTH_LAUNCHES: dict[str, dict[int, int]] = {k: {} for k in LAUNCHES}
 
 

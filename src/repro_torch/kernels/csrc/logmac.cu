@@ -6,8 +6,10 @@
 // Every word is decoded into the (val, rem) ILM planes euler::decode_planes
 // gives, the counterpart of decode_planes_raw.  No float atomics: two
 // launches on the same input give the same bits.  The wrapper
-// (kernels/logmac.py: _plan) picks one of three kernels from M and the
-// format alone:
+// (kernels/logmac.py: _plan) picks one of four kernels from M and the
+// format alone, three here and logmac_pieces.cu's bf16-piece tensor-core
+// kernel (M > 32, P32 L-21b and L-22b and the P16 variants but L-21b);
+// above 32 rows the K-split follows N, K and the format alone:
 //
 // * logmac_small_kernel (M <= 32: decode steps, short prefills).  Here the
 //   work is the K x N weight words: 4 bytes each (3.35 TB/s) against their
@@ -53,23 +55,26 @@
 //   per block) into A rows [va | ra] and B rows [vb ; -rb], read by
 //   ldmatrix (.trans for B); both planes share one accumulator, a product
 //   of depth 2K, which halves the accumulator registers (two blocks an SM,
-//   105 KB of shared memory each).  Split-K partials go to
-//   an [S, M, N] scratch that logmac_mma_reduce adds in split order; the
-//   plan aims at one wave of two blocks per SM.  What bounds it: at the
+//   105 KB of shared memory each).  Split-K partials go to an [S, rows,
+//   N] scratch that logmac_mma_reduce (mma_sync.cuh) adds in split order;
+//   the plan aims one row tile at one wave of two blocks per SM, and every
+//   row tile of a taller call runs that same split, so a row's bits do
+//   not depend on M.  What bounds it: at the
 //   fp16 rate the products are far below the bytes (4MNK / 989 TFLOP/s is
 //   0.011 ms at M=128 [2304, 9216] against 0.027 ms of words at 3.35 TB/s),
 //   and per stage the shared-memory traffic of the decode (table lookups
 //   that conflict on random words, the raw words read and the planes
 //   written) and of ldmatrix sets the pace, with mma.sync, not wgmma.
-// * logmac_kernel (M > 32, formats mma_key refuses: P32 L-21b, whose val
-//   plane has 17 significant bits): the 64x64 f32 shared-memory tile
-//   kernel on CUDA cores (two fmaf per plane pair, at most 67 TFLOP/s);
-//   each element of an A or B tile is decoded arithmetically once per
-//   tile, synchronous loads, no K-split.  P32 is the guard's escalation
-//   format only.
+// * logmac_kernel (M > 32, formats both tensor-core kernels refuse: the
+//   unbounded P32 variants, whose planes reach below what bf16 pieces
+//   hold, and P32 without truncation, six pieces a word): the 64x64 f32
+//   shared-memory tile kernel on CUDA cores (two fmaf per plane pair, at
+//   most 67 TFLOP/s); each element of an A or B tile is decoded
+//   arithmetically once per tile, synchronous loads, no K-split.
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include "logmac_decode.cuh"
+#include "mma_sync.cuh"
 
 #define BM 64
 #define BN 64
@@ -413,14 +418,8 @@ static int launch_small_mr(bool vec, int fmt, const uint32_t* A,
 
 // ---- the tensor-core kernel (M > 32, planes exact in fp16) ---------------
 
-constexpr int MMA_THREADS = 256;   // 8 warps: 2 along M x 4 along N
-constexpr int MMA_BN = 128;        // output columns per block
-constexpr int MMA_BK = 16;         // K rows per pipeline stage
-constexpr int MMA_STAGES = 3;      // raw-word stages in the ring (cp.async)
 constexpr int MMA_BPS = 2;         // blocks per SM (launch bounds; 105 KB
                                    // of shared memory each at 128 rows)
-constexpr int MMA_LDA = MMA_BK + 8;   // halves per decoded A row (padding:
-constexpr int MMA_LDB = MMA_BN + 8;   // ldmatrix rows hit distinct banks)
 
 template <int TM>
 struct MmaShape {
@@ -434,46 +433,6 @@ struct MmaShape {
   static constexpr int BYTES = MMA_STAGES * (RAW_A + RAW_B) * 4 +
                                2 * (PL_A + PL_B) * 2 + TABLE16 * 4;
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(full ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool full) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(full ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
 
 // d += a (16x16, row) * b (16x8, col): fp16 in, f32 accumulate
 __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
@@ -498,35 +457,6 @@ __device__ __forceinline__ uint32_t half_planes(uint32_t w,
     const uint32_t body = (sign ? 0u - p : p) & 0x7FFFu;
     const uint32_t t = tab[body >> 3] ^ (sign ? 0x80008000u : 0u);
     return body ? t : 0u;
-  }
-}
-
-// One stage of raw words: A rows [m0, m0 + TM) x K rows [k0, k0 + BK), B K
-// rows [k0, k0 + BK) x columns [n0, n0 + BN); words past M, N or kend are
-// zero-filled (a zero word has zero planes).  VEC: 16-byte copies (bases
-// 16-byte aligned, K and N multiples of 4), else 4-byte copies.
-template <int TM, bool VEC>
-__device__ __forceinline__ void load_stage(
-    uint32_t* __restrict__ ra, uint32_t* __restrict__ rb,
-    const uint32_t* __restrict__ A, const uint32_t* __restrict__ B, int M,
-    int N, int K, int m0, int n0, int k0, int kend, int tid) {
-  constexpr int W = VEC ? 4 : 1;
-  constexpr int ACH = TM * MMA_BK / W, BCH = MMA_BK * MMA_BN / W;
-#pragma unroll
-  for (int c = tid; c < ACH; c += MMA_THREADS) {
-    const int m = c / (MMA_BK / W), k = (c % (MMA_BK / W)) * W;
-    const bool in = m0 + m < M && k0 + k < kend;
-    const uint32_t* src = in ? A + (size_t)(m0 + m) * K + k0 + k : A;
-    if constexpr (VEC) cp_async16(ra + m * MMA_BK + k, src, in);
-    else cp_async4(ra + m * MMA_BK + k, src, in);
-  }
-#pragma unroll
-  for (int c = tid; c < BCH; c += MMA_THREADS) {
-    const int k = c / (MMA_BN / W), n = (c % (MMA_BN / W)) * W;
-    const bool in = k0 + k < kend && n0 + n < N;
-    const uint32_t* src = in ? B + (size_t)(k0 + k) * N + n0 + n : B;
-    if constexpr (VEC) cp_async16(rb + k * MMA_BN + n, src, in);
-    else cp_async4(rb + k * MMA_BN + n, src, in);
   }
 }
 
@@ -682,17 +612,6 @@ logmac_mma_kernel(const uint32_t* __restrict__ A,
       }
 }
 
-// C = sum_s part[s] over the [S, M, N] partials, in split order
-__global__ void logmac_mma_reduce(const float* __restrict__ part,
-                                  float* __restrict__ C, long long mn,
-                                  int S) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float s = 0.0f;
-  for (int z = 0; z < S; ++z) s += part[z * mn + i];
-  C[i] = s;
-}
-
 template <int TM, int FMT, bool VEC>
 static int launch_mma(const uint32_t* A, const uint32_t* B, float* C,
                       float* part, const float2* tab16, int M, int N, int K,
@@ -708,10 +627,7 @@ static int launch_mma(const uint32_t* A, const uint32_t* B, float* C,
                                          pc, pl, sub_rem);
   err = cudaGetLastError();
   if (err != cudaSuccess || S == 1) return (int)err;
-  const long long mn = (long long)M * N;
-  logmac_mma_reduce<<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(part, C,
-                                                                   mn, S);
-  return (int)cudaGetLastError();
+  return mma_reduce_launch(part, C, M, N, S, st);
 }
 
 template <int TM, int FMT>

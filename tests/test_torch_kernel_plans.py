@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from repro_torch.core import posit as TP
-from repro_torch.core.engine import from_variant
+from repro_torch.core.engine import VARIANT_NAMES, from_variant
 from repro_torch.kernels import logmac as TLM
 from repro_torch.kernels import paged_decode as TPD
 from repro_torch.kernels.logmac import decode_planes_raw, subtracts_rem
@@ -28,7 +28,7 @@ GEMMA_KN = [(2304, 2304), (2304, 1152), (2304, 9216), (9216, 2304),
 SMALL_MS = [1, 4, 5, 8, 16, 17, 31, 32]
 EDGE_KN = [(2301, 1155), (0, 64), (1, 1), (64, 3), (127, 5), (128, 5),
            (130, 7), (4096, 130), (100000, 16)]
-CSRC = Path(TLM.__file__).resolve().parent / "csrc" / "logmac.cu"
+CSRC = Path(TLM.__file__).resolve().parent / "csrc"
 
 
 @pytest.mark.parametrize("M", SMALL_MS + [33, 128])
@@ -104,9 +104,11 @@ def test_logmac_plan_scratch_within_its_bound(M):
 def test_logmac_plan_matches_kernel_source():
     """The plan's geometry is the kernel's: columns per block, threads, and
     the columns a thread owns at each row bound; for the tensor-core
-    kernel its columns and K rows per block, the blocks an SM holds (the
-    plan's wave) and the row tilings the launch accepts."""
-    src = CSRC.read_text()
+    kernels their columns and K rows per block (the shared header), the
+    blocks an SM holds (the plan's wave) and the row tilings the launches
+    accept."""
+    src = "".join((CSRC / f).read_text() for f in (
+        "logmac.cu", "mma_sync.cuh", "logmac_pieces.cu"))
     assert re.search(rf"constexpr int SM_BN = {TLM.SMALL_BN};", src)
     assert re.search(r"constexpr int SM_THREADS = 256;", src)
     assert "CPT = MR <= 8 ? 4 : (MR == 16 ? 2 : 1)" in src
@@ -117,9 +119,73 @@ def test_logmac_plan_matches_kernel_source():
     assert "__launch_bounds__(MMA_THREADS, MMA_BPS)" in src
     assert "if (bm == 64)" in src and "if (bm == 128)" in src
     assert TLM.MMA_KS_MIN % TLM.MMA_BK == 0
+    assert re.search(rf"constexpr int PC_MAX_NP = {TLM.PIECES_MAX};", src)
+    assert re.search(rf"constexpr int PC_TM = {TLM.PIECES_TM};", src)
+    assert "constexpr int PC_BPS = 2;" in src
+    assert "__launch_bounds__(MMA_THREADS, PC_BPS)" in src
+    assert TLM._plan(33, 9216, 2304, pieces=(2, 1)).mr == TLM.PIECES_TM
     for M in (4, 8, 16, 32):
         plan = TLM._plan(M, 9216, 2304)
         assert plan.cpt == (4 if M <= 8 else 2 if M == 16 else 1)
+
+
+# The tensor-core kernels' splits before this plan took them from the
+# column tiles alone (M <= 128 has one row tile, so these held for every
+# M in (32, 128]): (S, ks) at gemma2-2b's and hymba-1.5b's shapes (K, N)
+PARENT_MMA_SPLITS = {
+    (2304, 2304): (14, 176), (2304, 1152): (18, 128), (2304, 9216): (3, 768),
+    (9216, 2304): (14, 672), (2304, 256000): (1, 2304),
+    (1600, 6482): (5, 320), (3200, 1600): (20, 160), (1600, 1600): (13, 128),
+    (1600, 320): (13, 128), (1600, 5504): (6, 272), (5504, 1600): (20, 288),
+    (1600, 32016): (1, 1600)}
+ROW_COUNTS = [33, 64, 65, 128, 129, 200, 256, 512, 1000, 4096]
+TC_KINDS = [dict(mma=True), dict(pieces=(2, 1)), dict(pieces=(2, 2)),
+            dict(pieces=(3, 2))]
+
+
+@pytest.mark.parametrize("kw", TC_KINDS, ids=str)
+@pytest.mark.parametrize("kn", list(PARENT_MMA_SPLITS) + EDGE_KN, ids=str)
+def test_tensor_core_split_ignores_the_row_count(kn, kw):
+    """Above 32 rows a tensor-core plan's (S, ks) is the same at every row
+    count for the same (N, K, format), so a row's sum is too."""
+    K, N = kn
+    want = TLM._plan(33, N, K, **kw)
+    assert want.kind in ("mma", "pieces")
+    for M in ROW_COUNTS:
+        plan = TLM._plan(M, N, K, **kw)
+        assert (plan.kind, plan.splits, plan.ks, plan.pieces) == (
+            want.kind, want.splits, want.ks, want.pieces), M
+
+
+@pytest.mark.parametrize("M", [33, 64, 65, 100, 128])
+def test_mma_plan_up_to_128_rows_is_the_parents(M):
+    """At 32 < M <= 128 the fp16 kernel's plan is the one it had before the
+    split was made row-count free: the same split, the same row tiles, one
+    launch."""
+    for (K, N), split in PARENT_MMA_SPLITS.items():
+        plan = TLM._plan(M, N, K, mma=True)
+        assert (plan.splits, plan.ks) == split
+        assert plan.mr == (64 if M <= 64 else 128)
+        assert plan.launch_rows(M, N) >= M
+
+
+@pytest.mark.parametrize("kw", TC_KINDS, ids=str)
+def test_tensor_core_scratch_within_its_bound(kw):
+    """Each launch's [S, rows, N] partials stay within
+    MMA_SCRATCH_MAX_FLOATS at every row count, and the launches cover the
+    rows once in whole row tiles."""
+    rng = np.random.default_rng(7)
+    shapes = list(PARENT_MMA_SPLITS) + EDGE_KN + [
+        (int(k), int(n)) for k, n in zip(rng.integers(1, 20000, 30),
+                                         rng.integers(1, 300000, 30))]
+    for K, N in shapes:
+        for M in ROW_COUNTS:
+            plan = TLM._plan(M, N, K, **kw)
+            rows = plan.launch_rows(M, N)
+            assert rows == M if plan.splits == 1 else rows % plan.mr == 0
+            assert plan.scratch_floats(M, N) <= TLM.MMA_SCRATCH_MAX_FLOATS
+            if plan.splits > 1:
+                assert plan.blocks(N) <= TLM.MMA_TARGET_BLOCKS
 
 
 # --------------------------------------------------------------------------
@@ -327,22 +393,38 @@ def _within_logmac_bound(got, a, b, tc) -> bool:
     return bool(((got - TLM.logmac_plain(a, b, tc)).abs() <= bound).all())
 
 
+def _within_ulps(got, a, b, tc, units: int = 4) -> bool:
+    """|kernel - plain| <= units * 2^-24 * (|va||vb| + |ra||rb|) per
+    element, no absolute term: at K = 1 each output is a sum of a few
+    exact products on one side and two rounded ones on the other, so
+    both lie a few roundings from the exact value."""
+    va, ra = TLM.decode_planes(a, tc)
+    vb, rb = TLM.decode_planes(b, tc)
+    bound = units * 2.0 ** -24 * (va.abs() @ vb.abs() + ra.abs() @ rb.abs())
+    return bool(((got - TLM.logmac_plain(a, b, tc)).abs() <= bound).all())
+
+
 def check_redesigned_kernels_on_card(dev: torch.device) -> None:
     """The redesigned kernels against their plain versions on a CUDA card:
     the served format's decode table bit for bit, logmac over every word
     pattern, the small-M logmac at every row bound and across the
-    crossover, the tensor-core logmac (M > 32 at P8 and P16) at both row
-    tilings, with ragged, split and misaligned operands, and the
-    page-parallel paged decode with page chunks, each giving the same bits
-    on two launches, then the fused pre-scale + encode kernel
-    (``check_encode_prescaled_on_card``).  Shared by the card test below
-    (torch alone) and ``tests/test_torch_kernels.py``'s card test."""
+    crossover, the fp16 tensor-core logmac (M > 32 at P8 and P16) at both
+    row tilings, the bf16-piece logmac (M > 32, every format routed to it)
+    and the tile kernel it left (unbounded P32), with ragged, split and
+    misaligned operands, rows whose results do not depend on the row
+    count, and the page-parallel paged decode with page chunks, each
+    giving the same bits on two launches, then the fused pre-scale +
+    encode kernel (``check_encode_prescaled_on_card``).  Shared by the card
+    test below (torch alone) and ``tests/test_torch_kernels.py``'s card
+    test."""
     from repro_torch.kernels import posit_codec as TPC
     g = torch.Generator(device=dev).manual_seed(0)
     # the served format's decode table, bit for bit the plain decode of
     # its bodies, and logmac over every 8- and 16-bit pattern (and random
     # 32-bit words) with one product per output, so equal to the plain
-    # version exactly
+    # version exactly, but for the bf16-piece kernel (P32 at M = 64): it
+    # adds five exact piece products where the plain version rounds two,
+    # so it is held to four roundings of the products' magnitudes
     served = from_variant(16, "L-21b")
     tab = TLM._table16(dev, TLM.table16_key(served.posit, served))
     tv, tr = TLM.decode_planes(_bodies16().to(torch.int32).to(dev), served)
@@ -359,8 +441,11 @@ def check_redesigned_kernels_on_card(dev: torch.device) -> None:
         for M in (1, 4, 64):
             a = TPC.posit_encode(torch.randn(M, 1, generator=g, device=dev),
                                  tc.posit)
-            assert bool((TLM.logmac(a, b, tc)
-                         == TLM.logmac_plain(a, b, tc)).all())
+            if TLM.plan_of(M, b.shape[1], 1, tc).kind == "pieces":
+                assert _within_ulps(TLM.logmac(a, b, tc), a, b, tc)
+            else:
+                assert bool((TLM.logmac(a, b, tc)
+                             == TLM.logmac_plain(a, b, tc)).all())
     for width in (8, 16, 32):
         tc = from_variant(width, "L-21b")
         for M in (1, 4, 5, 8, 16, 17, 32, 33, 64, 65, 128):
@@ -387,6 +472,31 @@ def check_redesigned_kernels_on_card(dev: torch.device) -> None:
             a = TPC.posit_encode(torch.randn(M, 1000, generator=g,
                                              device=dev), tc.posit)
             assert _within_logmac_bound(TLM.logmac(a, b, tc), a, b, tc)
+    # every format the bf16-piece kernel takes, and the P32 formats the
+    # tile kernel keeps (unbounded, or without truncation: six pieces a
+    # word), above the crossover
+    for width, variant in ([(16, v) for v in VARIANT_NAMES
+                            if v != "L-21b"]
+                           + [(32, v) for v in VARIANT_NAMES]):
+        tc = from_variant(width, variant)
+        assert TLM.plan_of(128, 9216, 2304, tc).kind == (
+            "pieces" if width == 16 or variant in ("L-21b", "L-22b")
+            else "tile")
+        for M in (33, 128, 256):
+            for K, N in ((300, 70), (2301, 1155)):
+                a = TPC.posit_encode(
+                    torch.randn(M, K, generator=g, device=dev), tc.posit)
+                b = TPC.posit_encode(
+                    torch.randn(K, N, generator=g, device=dev), tc.posit)
+                got = TLM.logmac(a, b, tc)
+                if K == 300:
+                    torch.testing.assert_close(
+                        got, TLM.logmac_plain(a, b, tc), rtol=1e-5,
+                        atol=1e-4)
+                else:
+                    assert _within_logmac_bound(got, a, b, tc)
+                assert bool((got == TLM.logmac(a, b, tc)).all())
+    check_row_invariance_on_card(dev, g)
     ecfg = from_variant(16, "L-21b")
     B, KV, G, hd, ps = 3, 2, 2, 32, 8
     for nlp, pos in ((4, [19, -1, 30]), (130, [1000, 3, 1039])):
@@ -415,6 +525,28 @@ def check_redesigned_kernels_on_card(dev: torch.device) -> None:
                 assert bool((got == TPD.paged_flash_decode(*args, window,
                                                            **kw)).all())
     check_encode_prescaled_on_card(dev)
+
+
+def check_row_invariance_on_card(dev: torch.device, g) -> None:
+    """Above 32 rows a row's logmac result does not depend on the rows
+    beside it: the first 33 rows of calls at M in {33, 128, 129, 256, 512}
+    are bit-equal, for the fp16 kernel at P16 and P8 L-21b and the
+    bf16-piece kernel at P32 L-21b, on [2304, 9216] and [2304, 2304]."""
+    from repro_torch.kernels import posit_codec as TPC
+    for width, kind in ((16, "mma"), (8, "mma"), (32, "pieces")):
+        tc = from_variant(width, "L-21b")
+        for K, N in ((2304, 9216), (2304, 2304)):
+            b = TPC.posit_encode(torch.randn(K, N, generator=g, device=dev),
+                                 tc.posit)
+            a = TPC.posit_encode(torch.randn(512, K, generator=g, device=dev),
+                                 tc.posit)
+            first = None
+            for M in (33, 128, 129, 256, 512):
+                assert TLM.plan_of(M, N, K, tc).kind == kind
+                rows = TLM.logmac(a[:M], b, tc)[:33].view(torch.int32)
+                if first is None:
+                    first = rows
+                assert torch.equal(rows, first), (width, K, N, M)
 
 
 def check_encode_prescaled_on_card(dev: torch.device) -> None:

@@ -86,11 +86,15 @@ def test_mma_key_of_the_served_formats():
 @pytest.mark.parametrize("M", [1, 32, 33, 64, 65, 128, 200, 256])
 def test_logmac_route_follows_the_format(M):
     """The kernel is chosen by M and the format alone: the small-M kernel up
-    to 32 rows, above it the tensor-core kernel at P8/P16 and the tile
-    kernel at P32."""
-    for width, want in ((8, "mma"), (16, "mma"), (32, "tile")):
-        cfg = from_variant(width, "L-21b")
-        kind = TLM._plan(M, 2304, 9216, TLM.mma_key(cfg.posit, cfg)).kind
+    to 32 rows; above it the fp16 tensor-core kernel at P8/P16 L-21b, the
+    bf16-piece kernel at P32 L-21b and P16 L-1b (planes fp16 cannot hold),
+    the tile kernel at the unbounded P32 L-21 (both keys refuse it)."""
+    for cfg, want in ((from_variant(8, "L-21b"), "mma"),
+                      (from_variant(16, "L-21b"), "mma"),
+                      (from_variant(32, "L-21b"), "pieces"),
+                      (from_variant(16, "L-1b"), "pieces"),
+                      (from_variant(32, "L-21"), "tile")):
+        kind = TLM.plan_of(M, 2304, 9216, cfg).kind
         assert kind == ("small" if M <= TLM.SMALL_M_MAX else want)
         assert TLM.KERNEL_OF[kind] == f"logmac_{kind}"
 
@@ -105,10 +109,11 @@ EDGE_KN = [(2301, 1155), (0, 64), (1, 1), (64, 3), (127, 5), (256, 5),
 
 @pytest.mark.parametrize("M", [33, 64, 65, 128, 200, 256, 1000])
 def test_mma_plan_fills_the_card(M):
-    """A grid of at most MMA_TARGET_BLOCKS blocks where K is split, at
-    least half of it unless K is too short for splits of MMA_KS_MIN rows;
-    splits of whole stages that cover K once; [S, M, N] partials within
-    MMA_SCRATCH_MAX_FLOATS; 64-row blocks up to M = 64."""
+    """One row tile's grid (64-row blocks up to M = 64) holds at most
+    MMA_TARGET_BLOCKS blocks where K is split, at least half of it unless
+    K is too short for splits of MMA_KS_MIN rows; splits of whole stages
+    cover K once and do not depend on M; a launch covers whole row tiles,
+    its [S, rows, N] partials within MMA_SCRATCH_MAX_FLOATS."""
     rng = np.random.default_rng(M)
     shapes = HYMBA_KN + GEMMA_KN + EDGE_KN + [
         (int(k), int(n)) for k, n in zip(rng.integers(1, 20000, 40),
@@ -116,18 +121,23 @@ def test_mma_plan_fills_the_card(M):
     for K, N in shapes:
         plan = TLM._plan(M, N, K, mma=True)
         assert plan.kind == "mma" and plan.mr == (64 if M <= 64 else 128)
-        tiles = -(-N // TLM.MMA_BN) * -(-M // plan.mr)
-        blocks = plan.blocks(N, M)
+        assert plan[2:4] == TLM._plan(128, N, K, mma=True)[2:4]
+        tiles = -(-N // TLM.MMA_BN)
+        blocks = plan.blocks(N)
         assert blocks == tiles * plan.splits
         assert blocks >= min(TLM.MMA_TARGET_BLOCKS // 2,
                              tiles * max(1, K // TLM.MMA_KS_MIN))
+        rows = plan.launch_rows(M, N)
+        assert rows >= min(M, plan.mr) and rows % plan.mr == 0 or rows == M
         if plan.splits == 1:
             assert plan.ks == K and plan.scratch_floats(M, N) == 0
+            assert rows == M
         else:
             assert blocks <= TLM.MMA_TARGET_BLOCKS
             assert plan.ks % TLM.MMA_BK == 0 and plan.ks >= TLM.MMA_KS_MIN
             assert plan.ks * (plan.splits - 1) < K <= plan.ks * plan.splits
-            assert plan.scratch_floats(M, N) == plan.splits * M * N
+            assert plan.scratch_floats(M, N) == (plan.splits * min(M, rows)
+                                                 * N)
             assert plan.scratch_floats(M, N) <= TLM.MMA_SCRATCH_MAX_FLOATS
 
 
