@@ -53,8 +53,8 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    their K (M in {1, 4, 32}), logmac at P16 for M in {1, 4, 32, 128} (the
    heads 4 and 32, llama4's [5120, 202048] among them), and paged decode
    at (KV, G, hd) = (8, 5, 128), (32, 1, 64) and (8, 8, 128), then at
-   those on eight more draws, its distance from the plain version
-   reported and not held to 1e-3;
+   those on eight more draws, each held to the plain version at 1e-3
+   (the plain version's scores are the kernel's bit for bit);
 3. the fused kernel's scale against torch's ``_pow2_scale`` for every
    weight of the seeded FULL model (26 x 7 projections and the head's
    operand), then serving gemma2-2b FULL (26 layers, d_model 2304, seeded
@@ -173,7 +173,21 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    tokens: expert parallel on (1, 2) bit-identical to the one-process
    block without pre-scale (its max |diff| under P16 L-21b reported), on
    (2, 2) ``moe_fsdp``'s f32 ZeRO-3 gather bit-identical to the run
-   without it, the bfloat16 gather's diff and bytes reported;
+   without it, the bfloat16 gather's diff and bytes reported; (e)
+   gemma2-2b FULL under the production placement
+   (``Ctx(placement="production")``) on (data, model) = (1, 2) on
+   ``cuda`` at P16 L-21b: each rank holds its blocks of the seeded
+   parameters and of a dense cache (placed bytes equal to the sharding
+   arithmetic), layer 0's pre-scales (and the head's on it) bit-equal to
+   one process's on both ranks and its output within rtol 1e-4 / atol
+   2e-3 (its logits' distance printed), split encodes over the model
+   group bit-equal to their plain version, logmac within its bound on the
+   column and row blocks and each column block's call replayed with the
+   whole weight gathered, the rank's columns of it bit-equal to its own,
+   then a 4 x 16-token prefill and 8 greedy decode steps with the fused
+   encode and logmac launched; the final logits' distance, argmax
+   agreement and tokens against one process's, seconds and the peak
+   printed; the card's memory against ``mesh.H100_80GB_HBM3_BYTES``;
 4. each kernel timed with CUDA events (L2 flushed before every launch)
    beside its plain version, with the least time the card could take:
    ``ms`` with the host's issue of the call inside the window, as every
@@ -203,8 +217,8 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
 Launch counts are reset just before each path (3, 3b, 3c, 3d, the four
 drains of 3e, each model of 3f, the eval step of 3g, the drains of 3h and
 3i, 3i's frame prefill, 3j's generate and drain, each ``numerics.matmul``,
-the quire and the two examples of 3k, 3l's forward in each data rank)
-and read just after;
+the quire and the two examples of 3k, 3l's forward in each data rank,
+3l(e)'s prefill and decode in each placed rank) and read just after;
 each path asserts
 the kernels it launches, and the ``launches`` of the kernels line sum
 the paths.  ``--profile`` also
@@ -216,8 +230,10 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -267,8 +283,8 @@ PAGED_GEOMS = [(8, 5, 128), (32, 1, 64), (8, 8, 128)]
 # phase 3h's depth: llama4-scout at full width holds 7.73 GiB of f32
 # weights a layer and 3.86 GiB of embedding; 4 layers peaked at 48.77 GiB
 # of the card's 79.18 and 6 at 64.26 (PERF.md section 4), but 6 took
-# about 115 s of the run's 1200; 4 keep the whole run well inside it
-LLAMA4_LAYERS = 4
+# about 115 s of the run's 1200; 2 make room for 3l(e) in the run's time
+LLAMA4_LAYERS = 2
 
 # torch kernels of the kinds ``_pow2_scale`` and its divide run: abs, the
 # compare, clamp, log2, where, the sums, exp2, round, the divide, the fill
@@ -797,9 +813,9 @@ DP_BATCH = (4, 128)
 # parameters).  At 16 layers a rank peaked at 27.92 GiB, rank 0's
 # one-process references included (PERF.md, 3l): about 1.6 GiB a layer,
 # so two ranks of 20 layers take about 69 of the card's 79 GiB and 24
-# would not fit; 20 took about 240 s with the rest of 3l, so 12 keep the
-# whole run well inside its 1200 s
-HYMBA_DP_LAYERS = 12
+# would not fit; 20 took about 240 s with the rest of 3l; 6 keep the
+# whole run, 3l(e) included, within the last slice's time
+HYMBA_DP_LAYERS = 6
 EP_TOKENS = (4, 128)
 RANKS_DIR = os.path.join(HERE, "build", "chip_smoke_ranks")
 
@@ -856,12 +872,16 @@ def _l21b(backend: str, **kw):
 class _Checks(list):
     """Each logmac launch's max |diff| from its plain version; ``split``
     counts the split encodes held against theirs; ``stacked`` (a list in a
-    data rank) the logmac calls replayed with every rank's rows stacked."""
+    data rank) the logmac calls replayed with every rank's rows stacked;
+    ``columns`` (a list where ``column_group`` is a model group) the
+    column-parallel calls replayed with the whole weight."""
 
-    def __init__(self, stacked: bool = False):
+    def __init__(self, stacked: bool = False, column_group=None):
         super().__init__()
         self.split = []
         self.stacked = [] if stacked else None
+        self.column_group = column_group
+        self.columns = []
 
 
 def recording(bound_checks: _Checks | None = None, moved: list | None = None):
@@ -873,7 +893,11 @@ def recording(bound_checks: _Checks | None = None, moved: list | None = None):
     against its plain version bit for bit.  With ``bound_checks.stacked``,
     replays each logmac call with every rank's rows stacked in rank order
     (the one-process call's shape) and holds this rank's rows of it to the
-    rank's own result bit for bit; the replay's launches are not counted.
+    rank's own result bit for bit.  With ``bound_checks.column_group``,
+    replays each call that computes a block of a product's columns
+    (``logmac.column_block``) with the whole weight gathered over that
+    group and holds this rank's columns of it to the rank's own result bit
+    for bit.  The replays' launches are not counted.
     With ``moved``, appends for each engine pre-scale taken over a group
     whether the rank's own rows alone would give another."""
     import torch
@@ -921,27 +945,35 @@ def recording(bound_checks: _Checks | None = None, moved: list | None = None):
                 assert bool((diff <= bound).all()), "logmac outside bound"
                 worst = max(worst, float(diff.max()))
             bound_checks.append(worst)
+            parts = getattr(LM._COLUMNS, "parts", 1)
             if bound_checks.stacked is not None:
                 import torch.distributed as dist
-                from repro_torch.kernels import _build
                 M, world = a.shape[0], dist.get_world_size()
                 rows = torch.empty((world * M, a.shape[1]), dtype=a.dtype,
                                    device=a.device)
                 dist.all_gather_into_tensor(rows, a.contiguous())
-                counts = ({k: dict(v) for k, v in
-                           _build.WIDTH_LAUNCHES.items()},
-                          dict(_build.LAUNCHES))
-                whole = lm(rows, b, ecfg)
-                for k, v in counts[0].items():
-                    _build.WIDTH_LAUNCHES[k].clear()
-                    _build.WIDTH_LAUNCHES[k].update(v)
-                _build.LAUNCHES.update(counts[1])
+                with _uncounted():
+                    whole = lm(rows, b, ecfg)
                 r0 = dist.get_rank() * M
                 assert torch.equal(whole[r0:r0 + M].view(torch.int32),
                                    out.view(torch.int32)), (
                     f"logmac [{M}, {a.shape[1]}] x {list(b.shape)}: this "
                     f"rank's rows differ in the {world * M}-row call")
                 bound_checks.stacked.append(world * M)
+            if bound_checks.column_group is not None and parts > 1:
+                import torch.distributed as dist
+                g = bound_checks.column_group
+                blocks = [torch.empty_like(b) for _ in range(parts)]
+                dist.all_gather(blocks, b.contiguous(), group=g)
+                with _uncounted(), LM.column_block(1):
+                    whole = lm(a, torch.cat(blocks, 1).contiguous(), ecfg)
+                c0 = dist.get_rank(g) * b.shape[1]
+                assert torch.equal(
+                    whole[:, c0:c0 + b.shape[1]].view(torch.int32),
+                    out.view(torch.int32)), (
+                    f"logmac [{a.shape[0]}, {a.shape[1]}] x {list(b.shape)}"
+                    f": this rank's columns differ in the whole product")
+                bound_checks.columns.append(tuple(b.shape))
             return out
 
         PC.posit_encode_prescaled, E._pow2_scale = enc_spy, p2_spy
@@ -952,6 +984,22 @@ def recording(bound_checks: _Checks | None = None, moved: list | None = None):
         finally:
             PC.posit_encode_prescaled, E._pow2_scale, LM.logmac = enc, p2, lm
     return ctx()
+
+
+@contextlib.contextmanager
+def _uncounted():
+    """Launches made inside are taken off the counts again."""
+    from repro_torch.kernels import _build
+    counts = ({k: dict(v) for k, v in _build.WIDTH_LAUNCHES.items()},
+              dict(_build.LAUNCHES))
+    try:
+        yield
+    finally:
+        for k, v in counts[0].items():
+            _build.WIDTH_LAUNCHES[k].clear()
+            _build.WIDTH_LAUNCHES[k].update(v)
+        _build.LAUNCHES.clear()
+        _build.LAUNCHES.update(counts[1])
 
 
 @contextlib.contextmanager
@@ -1016,8 +1064,8 @@ def compressed_rank(rank, world):
 
 
 def ranks_of_two(rank, world, ids_np, ep_x_seed):
-    """(b), (c) and (d) on (1, 2) in one pair of ranks, one after the
-    other, each freeing the card before the next."""
+    """(b), (c), (d) and (e) on (1, 2) in one pair of ranks, one after
+    the other, each freeing the card before the next."""
     out = {"b": dp_forward_rank(rank, ids_np)}
     _free()
     out["c"] = dp_train_rank(rank)
@@ -1025,6 +1073,125 @@ def ranks_of_two(rank, world, ids_np, ep_x_seed):
     out["d"] = ep_rank(rank, (1, 2), {"pre": ({}, {}),
                                       "nopre": ({"pre_scale": False}, {})},
                        ep_x_seed)
+    _free()
+    out["e"] = placed_rank(rank, ids_np)
+    return out
+
+
+# 3l(e): the prompt [batch, tokens] and the greedy decode steps after it
+PLACED_PROMPT = (4, 16)
+PLACED_STEPS = 8
+
+
+def layer0_model(cfg, numerics):
+    """3l(e)'s layer 0 of ``cfg`` with float32 activations, under
+    ``numerics``."""
+    from repro_torch.models.transformer import Model
+    c1 = dataclasses.replace(cfg, n_layers=1, dtype="float32")
+    return Model(c1, numerics=numerics, device="cuda")
+
+
+def placed_serve(model, params, ids, ctx, layer0, checks=None):
+    """Layer 0's forward and the head on it (``layer0``: the 1-layer
+    model of :func:`layer0_model`) with its pre-scales recorded, then a
+    prefill of ``ids`` and ``PLACED_STEPS`` greedy decode steps on a
+    dense cache: (layer 0's output and its logits, its pre-scales, the
+    logmac weight shapes it ran, the final logits, the tokens, the
+    launches of the serve, seconds)."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import logmac as LM
+    cfg = model.cfg
+    B, Tn = ids.shape
+    shapes, lm = [], LM.logmac
+
+    def spy(a, b, ecfg):
+        shapes.append(tuple(b.shape))
+        return lm(a, b, ecfg)
+    p0 = {"embed": params["embed"], "layers": params["layers"][:1],
+          "ln_f": params["ln_f"]}
+    LM.logmac = spy
+    try:
+        with torch.no_grad():
+            with recording(checks) as rec:
+                hidden, _ = layer0.forward(p0, ids, ctx)
+            # the head's scales, not its checks: the plain encode of a
+            # [2304, 128000] block takes ~20 GiB of int64 temporaries
+            with recording() as rec_head:
+                h0 = layer0.head(p0, hidden, ctx)
+    finally:
+        LM.logmac = lm
+    cache = model.init_cache(B, Tn + PLACED_STEPS,
+                             mesh=ctx.mesh if ctx.placed else None)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    toks = []
+    with torch.no_grad():
+        logits, cache = model.prefill(params, ids, ctx, cache)
+        for i in range(PLACED_STEPS):
+            tok = logits[:, :cfg.vocab].argmax(-1)
+            toks.append(tok.cpu())
+            logits, cache = model.decode_step(
+                params, tok, torch.tensor(Tn + i, dtype=torch.int32,
+                                          device=ids.device), cache, ctx)
+    torch.cuda.synchronize()
+    return {"out0": hidden.float().cpu(), "h0": h0.float().cpu(),
+            "scales": rec + rec_head,
+            "shapes": sorted(set(shapes)),
+            "logits": logits.cpu(), "tokens": torch.stack(toks, 1),
+            "launches": dict(_build.LAUNCHES),
+            "s": time.perf_counter() - t0,
+            "cache_bytes": sum(t.numel() * t.element_size()
+                               for t in T.leaves(cache))}
+
+
+def placed_rank(rank, ids_np):
+    """(e): gemma2-2b FULL under the production placement on a (1, 2)
+    mesh on ``cuda``: the rank's blocks of the seeded parameters and of
+    the dense cache, layer 0's forward and a prefill + greedy decode."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.transformer import Model
+    cfg = gemma2_2b.FULL
+    mesh = make_mesh((1, 2), ("data", "model"))
+    model = Model(cfg, numerics=_l21b("cuda"), device="cuda")
+    layer0 = layer0_model(cfg, model.numerics)
+    whole = model.init(0)
+    specs = SH.params_pspecs(whole, mesh)
+    want_bytes = sum(
+        math.prod(SH.local_shape(x.shape, sp, mesh)) * x.element_size()
+        for x, sp in zip(T.leaves(whole), SH.shardings_in_order(whole,
+                                                                specs)))
+    params = T.map(lambda t: t.clone(), SH.place(whole, specs, mesh))
+    del whole
+    _free()
+    ids = torch.from_numpy(ids_np[:PLACED_PROMPT[0],
+                                  :PLACED_PROMPT[1]]).cuda()
+    ctx = Ctx(numerics=model.numerics, mesh=mesh, placement="production")
+    torch.cuda.reset_peak_memory_stats()
+    checks = _Checks(column_group=ctx.model_group)
+    out = placed_serve(model, params, ids, ctx, layer0, checks)
+    cache = model.init_cache(*PLACED_PROMPT[:1],
+                             PLACED_PROMPT[1] + PLACED_STEPS, device="meta")
+    out.update({
+        "param_bytes": sum(t.numel() * t.element_size()
+                           for t in T.leaves(params)),
+        "want_param_bytes": want_bytes,
+        "want_cache_bytes": sum(
+            math.prod(SH.local_shape(x.shape, sp, mesh)) * x.element_size()
+            for x, (_, sp) in zip(T.leaves(cache), SH.shardings_in_order(
+                cache, SH.cache_shardings(mesh, cache)))),
+        "bound_checks": len(checks), "worst": max(checks),
+        "split_checked": len(checks.split),
+        "columns": sorted(set(checks.columns)),
+        "column_checks": len(checks.columns),
+        "peak": torch.cuda.max_memory_allocated(),
+        "total_memory": torch.cuda.get_device_properties(0).total_memory})
     return out
 
 
@@ -1067,6 +1234,8 @@ def dp_forward_rank(rank, ids_np):
             "stacked": sorted(set(checks.stacked)),
             "stacked_checks": len(checks.stacked),
             "split_checked": len(checks.split),
+        "columns": sorted(set(checks.columns)),
+        "column_checks": len(checks.columns),
             "bytes": dict(C.BYTES), "bcast_s": bcast_s,
             "forward_s": time.perf_counter() - t0,
             "peak": torch.cuda.max_memory_allocated()}
@@ -1255,7 +1424,12 @@ def phase_multi_device(card: str, path_launches) -> dict:
         model, params, torch.from_numpy(ids).cuda(), Ctx(
             numerics=model.numerics))
     ref_logits = ref_logits.cpu()
-    del model, params
+    # (e)'s one-process run: layer 0 and the prefill + decode
+    layer0 = layer0_model(gemma2_2b.FULL, model.numerics)
+    ref_e = placed_serve(model, params, torch.from_numpy(
+        ids[:PLACED_PROMPT[0], :PLACED_PROMPT[1]]).cuda(),
+        Ctx(numerics=model.numerics), layer0)
+    del model, params, layer0
     _free()
     p, x = ep_block(seed)
     ep_ref = {}
@@ -1388,6 +1562,67 @@ def phase_multi_device(card: str, path_launches) -> dict:
         f" GiB")
     for ok, what in checks_c:
         assert ok, f"3l(c) outside its bar: {what}"
+    # (e)
+    from repro_torch.launch.mesh import H100_80GB_HBM3_BYTES
+    e = [r["e"] for r in two]
+    vocab_p = gemma2_2b.FULL.vocab
+    out0_diff = max(float((r["out0"] - ref_e["out0"]).abs().max())
+                    for r in e)
+    h0_diff = max(float((r["h0"] - ref_e["h0"]).abs().max()) for r in e)
+    h0_out = max(float((~torch.isclose(r["h0"], ref_e["h0"], rtol=1e-4,
+                                       atol=2e-3)).float().mean())
+                 for r in e)
+    log(f"[multi-device e] {card}: layer 0 at P16 L-21b, placed against one "
+        f"process: its output max |diff| {out0_diff:.4g} (bar rtol 1e-4 / "
+        f"atol 2e-3); its logits max |diff| {h0_diff:.4g}, {h0_out:.6f} of "
+        f"them outside that bar (the row-parallel wo's sum over two ranks; "
+        f"printed); every column-parallel logmac call bit-equal to the "
+        f"whole product's columns ({e[0]['column_checks']} calls, weight "
+        f"blocks {e[0]['columns']})")
+    for r in e:
+        assert r["scales"] == ref_e["scales"], \
+            "a placed rank's layer-0 pre-scale differs from one process's"
+        torch.testing.assert_close(r["out0"], ref_e["out0"], rtol=1e-4,
+                                   atol=2e-3)
+        assert r["column_checks"] > 0, "no column-parallel logmac call"
+        assert r["param_bytes"] == r["want_param_bytes"]
+        assert r["cache_bytes"] == r["want_cache_bytes"]
+        assert r["split_checked"] > 0 and r["bound_checks"] > 0
+        assert (2304, 1152) in r["shapes"] and (4608, 2304) in r["shapes"], \
+            f"no logmac on the rank's column or row block: {r['shapes']}"
+        for k in ("posit_encode_prescaled", "logmac"):
+            assert r["launches"][k] > 0, f"3l(e): {k} not launched"
+        for k, v in r["launches"].items():
+            launches[k] += v
+    if "H100 80GB HBM3" in card:
+        assert e[0]["total_memory"] == H100_80GB_HBM3_BYTES, \
+            e[0]["total_memory"]
+    assert torch.equal(e[0]["logits"], e[1]["logits"])
+    e_diff = float((e[0]["logits"] - ref_e["logits"]).abs().max())
+    e_agree = float((e[0]["logits"][:, :vocab_p].argmax(-1)
+                     == ref_e["logits"][:, :vocab_p].argmax(-1)
+                     ).float().mean())
+    same_tokens = float((e[0]["tokens"] == ref_e["tokens"]).float().mean())
+    log(f"[multi-device e] {card}: gemma2-2b FULL under the production "
+        f"placement on (data, model) = (1, 2), cuda, P16 L-21b: each rank "
+        f"holds {e[0]['param_bytes']} parameter bytes and "
+        f"{e[0]['cache_bytes']} cache bytes, equal to the sharding "
+        f"arithmetic; layer 0's {len(ref_e['scales'])} pre-scales (with the "
+        f"head's) bit-equal to one process's on both ranks; its output "
+        f"within rtol 1e-4 / atol 2e-3 (max |diff| {out0_diff:.4g}); "
+        f"{e[0]['split_checked']} split "
+        f"encodes over the model "
+        f"group bit-equal to their plain version, {e[0]['bound_checks']} "
+        f"logmac calls within the per-element bound, weight blocks "
+        f"{e[0]['shapes']}; prefill {PLACED_PROMPT} + {PLACED_STEPS} greedy"
+        f" steps: final logits max |diff| {e_diff:.4g} from one process's, "
+        f"argmax agreement {e_agree:.4f}, decoded tokens equal "
+        f"{same_tokens:.4f}; launches a rank {e[0]['launches']}, one "
+        f"process {ref_e['launches']}; serve "
+        f"{[round(r['s'], 2) for r in e]} s (one process "
+        f"{ref_e['s']:.2f}); peak {[round(r['peak'] / 2**30, 2) for r in e]}"
+        f" GiB a rank; the card's memory {e[0]['total_memory']} bytes "
+        f"(mesh.H100_80GB_HBM3_BYTES {H100_80GB_HBM3_BYTES})")
     log(f"[multi-device] {card}: port-staged bytes 0 (the port hands gloo "
         f"the CUDA tensors; gloo copies them through host memory inside "
         f"each collective); ranks {t_two:.1f} s (2 ranks: b, c, d) and "
@@ -2014,12 +2249,11 @@ def main(argv=None) -> int:
                         f"KV={KVg} G={Gg} hd={hdg}, window={window}",
                         softcap=None, ref_bar=None)
         del kp_g, vp_g
-    # the same geometries on eight more draws, each kernel output against
-    # its plain version, reported and not held to the 1e-3 bar: the bar
-    # above holds on its own draw, and on others (at (8, 8, 128), window
-    # 24, 1.19e-3) kernel and plain version may encode a probability one
-    # posit step apart, where a score differs in its last bit (ROADMAP
-    # queue 3); two launches bit-identical and finite outputs are gated
+    # the same geometries on eight more draws, each kernel output held to
+    # its plain version at 1e-3 as above: the plain version's scores are
+    # the kernel's bit for bit (``paged_decode.page_scores``), so both
+    # encode the same probability words on every draw; two launches
+    # bit-identical and finite outputs are gated too
     gen_pd = torch.Generator(device=dev)
     spread = {}
     for seed in range(1, 9):
@@ -2040,12 +2274,17 @@ def main(argv=None) -> int:
                 assert bool(torch.isfinite(got).all())
                 want = PD.paged_flash_decode_plain(q_g, kp_g, vp_g, table,
                                                    pos, window, **kw_c)
-                spread.setdefault((KVg, Gg, hdg, window), []).append(
-                    float((got - want).abs().max()))
+                d_seed = float((got - want).abs().max())
+                assert d_seed <= 1e-3, (
+                    f"paged decode seed {seed} (KV, G, hd) "
+                    f"{(KVg, Gg, hdg)} window={window}: {d_seed}")
+                spread.setdefault((KVg, Gg, hdg, window), []).append(d_seed)
+                errs["paged_flash_decode"] = max(errs["paged_flash_decode"],
+                                                 d_seed)
             del kp_g, vp_g
     log("[paged_decode] eight more draws (seeds 1-8) at the phase 3h, 3i and "
-        "chameleon-34b geometries, max|kernel-plain| a draw, not gated (the "
-        "1e-3 bar holds on the draw above only): " + "; ".join(
+        "chameleon-34b geometries, max|kernel-plain| a draw, each gated at "
+        "1e-3: " + "; ".join(
             f"(KV, G, hd) {k[:3]} window={k[3]}: max {max(v):.3g}, "
             f"{sum(d > 1e-3 for d in v)} of {len(v)} over 1e-3"
             for k, v in spread.items()))

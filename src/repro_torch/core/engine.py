@@ -184,7 +184,7 @@ def statistics_groups(group_a, group_b):
     """The process groups over which operands a and b of the dots and
     elementwise products issued inside take their per-tensor statistics
     (None: the operand's own, as on one device).  ``numerics.api`` sets
-    them from the context's group and the call's replicated operands."""
+    them from the context's group or the groups a call names."""
     prev = statistics_group_pair()
     _TLS.groups = (group_a, group_b)
     try:
@@ -228,6 +228,34 @@ def _by_leading_rows(fn, x):
     return tuple(outs)
 
 
+_PLANES_MEMO = None
+
+
+@contextlib.contextmanager
+def shapes_only_planes(memo):
+    """Inside, the plane construction of an operand on the ``meta`` device
+    (shapes only, outside autograd) goes through ``memo(key, fn)``, ``key``
+    its shape, dtype and config, ``fn`` the construction: the dry run
+    (``launch.dryrun``) runs it once per key and replays its outputs'
+    shapes, counts and peak bytes after (the codec's ~500 ops a dot
+    dominate a shapes-only step)."""
+    global _PLANES_MEMO
+    prev, _PLANES_MEMO = _PLANES_MEMO, memo
+    try:
+        yield
+    finally:
+        _PLANES_MEMO = prev
+
+
+def _codec(planes, x, cfg: EulerConfig):
+    memo = _PLANES_MEMO
+    if (memo is None or x.device.type != "meta"
+            or (torch.is_grad_enabled() and x.requires_grad)):
+        return _by_leading_rows(planes, x)
+    return memo((tuple(x.shape), x.dtype, cfg),
+                lambda: _by_leading_rows(planes, x))
+
+
 def operand_planes(x, cfg: EulerConfig, group=None):
     """(val, rem) planes for one operand under ``cfg`` (STE gradients).
 
@@ -246,7 +274,7 @@ def operand_planes(x, cfg: EulerConfig, group=None):
                                         cfg.stages, frac_exp)
             return _ste(val, xc).to(cfg.dtype), rem.detach().to(cfg.dtype)
 
-        return _by_leading_rows(planes, x)
+        return _codec(planes, x, cfg)
     pc = cfg.posit
     s = (_pow2_scale(x, group) if cfg.pre_scale
          else torch.ones((), dtype=torch.float32, device=x.device))
@@ -263,7 +291,7 @@ def operand_planes(x, cfg: EulerConfig, group=None):
                     (rem * s).detach().to(cfg.dtype))
     else:
         raise ValueError(f"unknown mode {cfg.mode}")
-    return _by_leading_rows(planes, x)
+    return _codec(planes, x, cfg)
 
 
 def euler_dot_general(a, b, dimension_numbers, cfg: EulerConfig):

@@ -15,17 +15,23 @@ Counterpart of ``repro.distributed.collectives``:
 3. ``bucketed``: the leaves of a tree grouped into buckets of about
    ``bucket_bytes``, the plan :func:`all_reduce_tree` issues one
    all-reduce per bucket by.
-4. The autograd-aware collectives of the data- and expert-parallel
-   paths: :func:`reduce_sum` (the group's sum; each rank's gradient is
-   its own share), :func:`copy_sum_grad` (identity; the gradient summed
-   over the group) and :func:`gather_dim` (the ZeRO-3 all-gather along a
-   dim; its gradient reduce-scattered).
+4. The autograd-aware collectives of the data-, expert- and
+   tensor-parallel paths: :func:`reduce_sum` (the group's sum; each
+   rank's gradient is its own share), :func:`copy_sum_grad` (identity;
+   the gradient summed over the group), :func:`gather_dim` (the ZeRO-3
+   all-gather along a dim; its gradient reduce-scattered), and for the
+   production placement's model axis :func:`gather_replicated` (the
+   all-gather before a computation every model rank runs alike; its
+   gradient cut to the rank's block) and :func:`take_block` (the rank's
+   block; its gradient all-gathered).  :func:`all_gather_dim` and
+   :func:`reduce_scatter_dim` are the plain collectives (ZeRO-1).
 5. :func:`on_every_rank`: marks a block that every rank of a mesh runs
    on its own shapes (the reference's ``shard_map`` body), which the cost
    model (``analysis.costmodel``) counts that many times.
 
 Every collective here goes through :func:`_issue`, which counts its
-payload bytes by kind in ``BYTES``.  This module hands the tensors to
+payload bytes by kind in ``BYTES`` and, inside :func:`recording`, each
+call's result bytes and group size by the reference's HLO names.  This module hands the tensors to
 the process group where they are: gloo of the port's PyTorch takes CUDA
 tensors for every kind used here (all-reduce, broadcast, all-gather,
 reduce-scatter), so the port stages nothing through host memory itself.
@@ -99,14 +105,56 @@ def ef_compress(grads, ef, block: int = 2048):
 BYTES = {"all_reduce": 0, "broadcast": 0, "all_gather": 0,
          "reduce_scatter": 0}
 
+# the reference's HLO name of each kind (``launch.dryrun``'s record)
+HLO_NAMES = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+             "reduce_scatter": "reduce-scatter", "broadcast": "broadcast"}
+_RECORDS: list = []
+
 
 def reset_bytes() -> None:
     for k in BYTES:
         BYTES[k] = 0
 
 
-def _issue(kind: str, t: torch.Tensor, fn):
-    BYTES[kind] += t.numel() * t.element_size()
+@contextlib.contextmanager
+def recording():
+    """Record every collective issued inside, the counterpart of the
+    reference's HLO collectives (``launch.dryrun.parse_collectives``):
+    yields a dict of the HLO names ``all-reduce``, ``all-gather``,
+    ``reduce-scatter``, ``all-to-all`` and ``collective-permute`` (and
+    ``broadcast`` where one was issued), each with ``count``, ``bytes``
+    (the result's bytes on this rank), ``bytes_effective`` (the same: a
+    loop issues its collectives once per trip) and ``max_group``, filled
+    in when the block ends."""
+    out = {k: {"count": 0, "bytes": 0, "bytes_effective": 0, "max_group": 0}
+           for k in ("all-reduce", "all-gather", "reduce-scatter",
+                     "all-to-all", "collective-permute")}
+    rec: dict = {}
+    _RECORDS.append(rec)
+    try:
+        yield out
+    finally:
+        _RECORDS.remove(rec)
+        for (kind, group_n), (count, nbytes) in rec.items():
+            o = out.setdefault(HLO_NAMES[kind], {
+                "count": 0, "bytes": 0, "bytes_effective": 0,
+                "max_group": 0})
+            o["count"] += count
+            o["bytes"] += nbytes
+            o["bytes_effective"] += nbytes
+            o["max_group"] = max(o["max_group"], group_n)
+
+
+def _issue(kind: str, t: torch.Tensor, fn, group=None, out_bytes=None):
+    nbytes = t.numel() * t.element_size()
+    BYTES[kind] += nbytes
+    if _RECORDS:
+        n = dist.get_world_size(group)
+        key = (kind, n)
+        res = nbytes if out_bytes is None else out_bytes
+        for rec in _RECORDS:
+            count, total = rec.get(key, (0, 0))
+            rec[key] = (count + 1, total + res)
     fn()
 
 
@@ -114,7 +162,8 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``x`` reduced over ``group`` in place (returned); a no-op where the
     group is None (one rank)."""
     if group is not None:
-        _issue("all_reduce", x, lambda: dist.all_reduce(x, op=op, group=group))
+        _issue("all_reduce", x, lambda: dist.all_reduce(x, op=op, group=group),
+               group)
     return x
 
 
@@ -190,7 +239,7 @@ def broadcast_tree(tree, src: int = 0, group=None,
             same = [x for x in leaves if x.dtype == dtype]
             buf = torch.cat([x.detach().reshape(-1) for x in same])
             _issue("broadcast", buf,
-                   lambda: dist.broadcast(buf, src, group=group))
+                   lambda: dist.broadcast(buf, src, group=group), group)
             with torch.no_grad():
                 for x, part in zip(same, buf.split([x.numel()
                                                     for x in same])):
@@ -234,25 +283,82 @@ def copy_sum_grad(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _CopySumGrad.apply(x, group)
 
 
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's blocks of ``x`` concatenated along ``dim`` in
+    group-rank order (no autograd)."""
+    if group is None:
+        return x
+    n = dist.get_world_size(group)
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
+    _issue("all_gather", xt, lambda: dist.all_gather_into_tensor(
+        out, xt, group=group), group, out.numel() * out.element_size())
+    return out.movedim(0, dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``x`` summed over ``group``, of which this rank keeps its block
+    along ``dim`` (no autograd)."""
+    if group is None:
+        return x
+    n = dist.get_world_size(group)
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
+    _issue("reduce_scatter", xt, lambda: dist.reduce_scatter_tensor(
+        out, xt, group=group), group, out.numel() * out.element_size())
+    return out.movedim(0, dim)
+
+
+def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``x`` overwritten in place with the group's rank ``src``'s (a rank
+    within the group; returned; no autograd)."""
+    if group is not None:
+        root = dist.get_global_rank(group, src)
+        _issue("broadcast", x, lambda: dist.broadcast(x, root, group=group),
+               group)
+    return x
+
+
+def block_of(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim``: one of as many equal
+    blocks as ``group`` has ranks, in group-rank order."""
+    if group is None:
+        return x
+    n = x.shape[dim] // dist.get_world_size(group)
+    return x.narrow(dim, dist.get_rank(group) * n, n)
+
+
 class _GatherDim(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
         ctx.dim, ctx.group = dim, group
-        n = dist.get_world_size(group)
-        xt = x.movedim(dim, 0).contiguous()
-        out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
-        _issue("all_gather", xt, lambda: dist.all_gather_into_tensor(
-            out, xt, group=group))
-        return out.movedim(0, dim)
+        return all_gather_dim(x, dim, group)
 
     @staticmethod
     def backward(ctx, g):
-        n = dist.get_world_size(ctx.group)
-        gt = g.movedim(ctx.dim, 0).contiguous()
-        out = gt.new_empty((gt.shape[0] // n,) + tuple(gt.shape[1:]))
-        _issue("reduce_scatter", gt, lambda: dist.reduce_scatter_tensor(
-            out, gt, group=ctx.group))
-        return out.movedim(0, ctx.dim), None, None
+        return reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return block_of(g, ctx.dim, ctx.group).contiguous(), None, None
+
+
+class _TakeBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return block_of(x, dim, group).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, ctx.dim, ctx.group), None, None
 
 
 def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -260,6 +366,22 @@ def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     order (the ZeRO-3 weight gather); its gradient is reduce-scattered
     back, each rank keeping the group's summed gradient of its block."""
     return x if group is None else _GatherDim.apply(x, dim, group)
+
+
+def gather_replicated(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' blocks of ``x`` concatenated along ``dim``, for a
+    computation every rank of ``group`` then runs alike (a column-parallel
+    projection's output gathered before the head reshape): its gradient,
+    the whole one on every rank, is cut back to the rank's block."""
+    return x if group is None else _GatherReplicated.apply(x, dim, group)
+
+
+def take_block(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along ``dim`` of a tensor every rank of ``group``
+    holds alike (the input of a row-parallel projection): its gradient is
+    gathered back, so each rank holds the whole tensor's gradient, as it
+    holds the tensor."""
+    return x if group is None else _TakeBlock.apply(x, dim, group)
 
 
 _TLS = threading.local()

@@ -32,9 +32,12 @@ divisible.
 
 The reference's ``NamedSharding`` trees place arrays; here
 :func:`local_shard` cuts one rank's block out of a global tensor under a
-spec, and :func:`local_shards` does it over a tree of (mesh, spec) pairs,
+spec, :func:`local_shards` does it over a tree of (mesh, spec) pairs,
 which is what ``params_shardings``, ``opt_shardings``,
-``batch_shardings`` and ``cache_shardings`` return.
+``batch_shardings`` and ``cache_shardings`` return, and :func:`place`
+over a tree of specs (``params_pspecs``): the tree a rank holds under
+``models.layers.Ctx(placement="production")``.  :func:`local_shape` and
+:func:`global_shape` map a leaf's shape between the two sides of a spec.
 """
 from __future__ import annotations
 
@@ -58,6 +61,9 @@ class PartitionSpec(tuple):
 
     def __repr__(self):
         return f"P{tuple.__repr__(self)}"
+
+    def __getnewargs__(self):     # unpickle entry by entry
+        return tuple(self)
 
 
 P = PartitionSpec
@@ -315,3 +321,37 @@ def local_shards(tree, shardings, coord: dict | None = None):
     return T.unflatten(tree, [
         local_shard(x, spec, mesh, coord) for x, (mesh, spec) in
         zip(T.leaves(tree), shardings_in_order(tree, shardings))])
+
+
+def _blocks(spec, mesh, ndim: int) -> list[int]:
+    """The number of blocks each of ``ndim`` dims is cut into."""
+    out = []
+    for ax in tuple(spec) + (None,) * (ndim - len(spec)):
+        axes = () if ax is None else (ax if isinstance(ax, tuple) else (ax,))
+        out.append(math.prod(axis_size(mesh, a) for a in axes))
+    return out
+
+
+def local_shape(shape, spec, mesh) -> tuple:
+    """The shape of one rank's block of a global ``shape`` under
+    ``spec`` (JAX's ``sharding.shard_shape``)."""
+    shape = tuple(shape)
+    return tuple(d // n for d, n in zip(shape,
+                                        _blocks(spec, mesh, len(shape))))
+
+
+def global_shape(leaf, spec, mesh) -> tuple:
+    """The global shape of the tensor whose block ``leaf`` (or a shape)
+    is under ``spec``: the inverse of :func:`local_shape`."""
+    shape = tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf)
+    return tuple(d * n for d, n in zip(shape,
+                                       _blocks(spec, mesh, len(shape))))
+
+
+def place(tree, specs, mesh, coord: dict | None = None):
+    """The rank's blocks of ``tree``'s leaves under ``specs``, a tree of
+    specs of ``tree``'s structure (``params_pspecs``): what one rank
+    holds under the production placement."""
+    return T.unflatten(tree, [
+        local_shard(x, spec, mesh, coord) for x, spec in
+        zip(T.leaves(tree), shardings_in_order(tree, specs))])

@@ -16,14 +16,17 @@ at most five exact bf16 pieces a word (P32 L-21b and L-22b, the other P16
 variants), else the 64x64 f32 tile kernel (the unbounded P32 variants,
 P32 without truncation).  Above SMALL_M_MAX the K-split depends on N, K
 and the format alone, so a row's result is the same bits whatever rows
-share the call.
+share the call; inside :func:`column_block` N is the whole product's, so
+a column-parallel rank's columns are the same bits as one process's.
 
 As in the TPU kernel (``repro/kernels/logmac.py:144``), the rem dot is
 subtracted only when ``stages > 0`` and the mode is ``euler``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -203,7 +206,8 @@ def _split_k(N: int, K: int, target: int) -> tuple[int, int]:
 
 
 def _plan(M: int, N: int, K: int, mma: bool = False,
-          pieces: tuple[int, int] | None = None) -> LogmacPlan:
+          pieces: tuple[int, int] | None = None,
+          split_n: int | None = None) -> LogmacPlan:
     """Which logmac kernel runs an (M,K) x (K,N) product, and its grid;
     ``mma``: the format's planes are exact in fp16 (:func:`mma_key`);
     ``pieces``: else its bf16 piece counts (:func:`pieces_key`).
@@ -216,28 +220,49 @@ def _plan(M: int, N: int, K: int, mma: bool = False,
     one wave of their blocks (hymba's k, v has 3 column tiles), each split
     at least MMA_KS_MIN rows: every row tile of a taller call runs the same
     split (a launch holds as many row tiles as the scratch bound allows),
-    so a row's sum is the same whatever M is."""
+    so a row's sum is the same whatever M is.  ``split_n``: the N the
+    K-split is chosen for (default N), so that a block of a product's
+    columns sums K as the whole product does."""
+    split_n = N if split_n is None else split_n
     if M > SMALL_M_MAX and mma:
-        S, ks = _split_k(N, K, MMA_TARGET_BLOCKS)
+        S, ks = _split_k(split_n, K, MMA_TARGET_BLOCKS)
         return LogmacPlan("mma", MMA_BN, S, ks, 64 if M <= 64 else 128, 4)
     if M > SMALL_M_MAX and pieces:
-        S, ks = _split_k(N, K, MMA_TARGET_BLOCKS)
+        S, ks = _split_k(split_n, K, MMA_TARGET_BLOCKS)
         return LogmacPlan("pieces", MMA_BN, S, ks, PIECES_TM, 4, pieces)
     if M > SMALL_M_MAX:
         return LogmacPlan("tile", 64, 1, K, 64, 4)
     mr = next(r for r in (4, 8, 16, 32) if M <= r)
     cpt = 4 if mr <= 8 else (2 if mr == 16 else 1)
-    want = TARGET_BLOCKS // -(-N // SMALL_BN)
+    want = TARGET_BLOCKS // -(-split_n // SMALL_BN)
     if want <= 1 or K < 2 * KS_MIN:
         return LogmacPlan("small", SMALL_BN, 1, K, mr, cpt)
     ks = max(KS_MIN, -(-K // (want * K_ALIGN)) * K_ALIGN)
     return LogmacPlan("small", SMALL_BN, -(-K // ks), ks, mr, cpt)
 
 
-def plan_of(M: int, N: int, K: int, ecfg: EulerConfig) -> LogmacPlan:
+def plan_of(M: int, N: int, K: int, ecfg: EulerConfig,
+            split_n: int | None = None) -> LogmacPlan:
     """The plan :func:`logmac` runs for this shape and format."""
     return _plan(M, N, K, mma_key(ecfg.posit, ecfg),
-                 pieces_key(ecfg.posit, ecfg))
+                 pieces_key(ecfg.posit, ecfg), split_n)
+
+
+_COLUMNS = threading.local()
+
+
+@contextlib.contextmanager
+def column_block(parts: int):
+    """Products run inside compute a block of ``1 / parts`` of their
+    columns (a weight split by column over ``parts`` ranks): each plans
+    its K-split for ``N * parts`` columns, so that every column sums K in
+    the order of the whole product."""
+    prev = getattr(_COLUMNS, "parts", 1)
+    _COLUMNS.parts = parts
+    try:
+        yield
+    finally:
+        _COLUMNS.parts = prev
 
 
 def table16_key(pc: P.PositConfig, ecfg: EulerConfig):
@@ -464,7 +489,7 @@ def logmac(a_pat: torch.Tensor, b_pat: torch.Tensor,
     if ecfg.mode != "euler":
         raise ValueError(f"logmac kernel runs euler mode, got {ecfg.mode}")
     out = torch.empty((Mr, Nc), dtype=torch.float32, device=a_pat.device)
-    plan = plan_of(Mr, Nc, K, ecfg)
+    plan = plan_of(Mr, Nc, K, ecfg, Nc * getattr(_COLUMNS, "parts", 1))
     if plan.kind == "mma":
         _launch_mma(a_pat, b_pat, out, plan, ecfg)
     elif plan.kind == "pieces":

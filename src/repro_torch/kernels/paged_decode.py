@@ -12,7 +12,10 @@ layer, addressed through per-slot page tables.
 * :func:`paged_flash_decode_plain` — the plain version of the fused kernel:
   page by page, the kernel's own math (posit decode to ILM planes,
   two-plane QK, softcap, causal+window mask, online softmax, re-encode of
-  the probabilities in the pv format, two-plane PV).
+  the probabilities in the pv format, two-plane PV).  Its scores are the
+  kernel's bit for bit (:func:`page_scores`: the same summation order and
+  the same ``expf``/``tanhf``, with no fast-math intrinsic), so the two
+  encode the same probability words.
 * :func:`paged_flash_decode` — the wrapper: the plain version for CPU
   tensors, the ``csrc/paged_decode.cu`` kernel for CUDA tensors (q's
   pre-scale and encode in one launch, then page-parallel passes: each
@@ -127,6 +130,44 @@ def _q_setup(q, k_pages, cfg_qk: EulerConfig):
     return (qf / sq).contiguous(), scl
 
 
+def lane_dot(a, b):
+    """``a [..., G, hd] . b [..., S, hd] -> [..., G, S]`` in the kernel's
+    order (``csrc/paged_decode.cu``, ``pd_scores_kernel``): lane ``l`` of
+    a warp sums ``d = l, l + 32, ...`` as a chain of ``fmaf`` from 0, then
+    the 32 lanes are added by the xor butterfly (lane 0 ends with
+    ``x[i] + x[i + h]`` for h = 16, 8, 4, 2, 1).  An ``fmaf`` is taken as
+    the float64 ``a * b + c`` rounded to float32 (the product is exact
+    in float64)."""
+    hd = a.shape[-1]
+    pad = -hd % 32
+    a = torch.nn.functional.pad(a, (0, pad)).unflatten(-1, (-1, 32))
+    b = torch.nn.functional.pad(b, (0, pad)).unflatten(-1, (-1, 32))
+    a64, b64 = a.to(torch.float64), b.to(torch.float64)
+    acc = torch.zeros(a.shape[:-3] + (a.shape[-3], b.shape[-3], 32),
+                      dtype=torch.float32, device=a.device)
+    for i in range(a.shape[-2]):
+        prod = a64[..., :, None, i, :] * b64[..., None, :, i, :]
+        acc = (prod + acc).to(torch.float32)
+    while acc.shape[-1] > 1:
+        h = acc.shape[-1] // 2
+        acc = acc[..., :h] + acc[..., h:]
+    return acc[..., 0]
+
+
+def page_scores(qv, qr, kv_, kr, scl, sub_rem: bool, softcap):
+    """One page's scores ``[..., G, ps]`` as the kernel computes them: the
+    two planes' :func:`lane_dot`, their difference, times ``scl``, then
+    the softcap with a true division (a CUDA tensor divided by a host
+    scalar is multiplied by its reciprocal, which rounds differently)."""
+    s = lane_dot(qv, kv_)
+    if sub_rem:
+        s = s - lane_dot(qr, kr)
+    s = s * scl
+    if softcap:
+        s = softcap * torch.tanh(s / s.new_tensor(softcap))
+    return s
+
+
 def _window_int(window) -> int:
     return -1 if window is None else int(window)
 
@@ -150,12 +191,8 @@ def _flash_plain(qpat, k_pages, v_pages, page_table, pos, window, scl, *,
         kw = k_pages[phys].permute(0, 2, 1, 3)           # [B, KV, ps, hd]
         kv_, kr = decode_planes_raw(kw, pc, cfg_qk.stages, cfg_qk.trunc,
                                     cfg_qk.sublane)
-        s = qv @ kv_.transpose(-1, -2)                   # [B, KV, G, ps]
-        if subtracts_rem(cfg_qk):
-            s = s - qr @ kr.transpose(-1, -2)
-        s = s * scl
-        if softcap:
-            s = softcap * torch.tanh(s / softcap)
+        s = page_scores(qv, qr, kv_, kr, scl, subtracts_rem(cfg_qk),
+                        softcap)                         # [B, KV, G, ps]
         spos = torch.arange(ps, device=dev) + j * ps
         ok = spos <= pos_b
         if w >= 0:

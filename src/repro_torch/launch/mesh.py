@@ -17,14 +17,18 @@ card, which NCCL refuses.
 :class:`Mesh` is what the sharding rules, ``models.layers.Ctx`` and the
 data-parallel step read: ``shape`` (axis name -> size, as JAX's
 ``Mesh.shape``), ``axis_names``, this rank's ``coord`` and the process
-group of one axis or of several together (``group(("pod", "data"))``).
+group of one axis or of several together (``group(("pod", "data"))``,
+``group(("data", "model"))``: every set of axes of more than one rank
+has its group, made when the mesh is).
 
 ``HW`` holds one card's figures under the reference's keys, each a data
 sheet value of the NVIDIA H100 80GB HBM3 (SXM, 700 W): dense bf16 989
 TFLOP/s, HBM3 3.35 TB/s, NVLink 4 in place of the TPU's ICI and one
 InfiniBand NDR port (400 Gb/s) per GPU in place of DCN.  ``hbm_bytes`` is
 the card's memory as ``torch.cuda.get_device_properties`` reports it, read
-on first use (it raises where there is no card).
+on first use (it raises where there is no card); :func:`hbm_capacity`
+falls back to the H100's figure, :data:`H100_80GB_HBM3_BYTES`, where
+there is none (the dry run on fake ranks).
 """
 from __future__ import annotations
 
@@ -76,12 +80,14 @@ class Mesh:
         self.shape = dict(zip(self.axis_names, device_mesh.shape))
         self.coord = dict(zip(self.axis_names, device_mesh.get_coordinate()))
         self._groups = {(a,): device_mesh.get_group(a)
-                        for a in self.axis_names}
-        # the data axes together: every rank creates every slice's group,
-        # in the same order, and keeps its own
-        da = tuple(a for a in ("pod", "data") if a in self.axis_names)
-        if len(da) > 1:
-            self._groups[da] = self._joint_group(da)
+                        for a in self.axis_names if self.shape[a] > 1}
+        # every set of two or more axes together (the data axes; data and
+        # model, the group of an activation split over both): every rank
+        # creates every slice's group, in the same order, and keeps its own
+        wide = [a for a in self.axis_names if self.shape[a] > 1]
+        for n in range(2, len(wide) + 1):
+            for axes in itertools.combinations(wide, n):
+                self._groups[axes] = self._joint_group(axes)
 
     def _joint_group(self, axes):
         ranks = self.device_mesh.mesh           # [*shape] global ranks
@@ -105,11 +111,12 @@ class Mesh:
         return math.prod(self.shape[a] for a in axes if a in self.shape)
 
     def group(self, axes):
-        """The process group of ``axes`` (one name or a tuple), or None
-        where they span one rank."""
-        axes = (axes,) if isinstance(axes, str) else tuple(
-            a for a in axes if a in self.axis_names)
-        if not axes or self.size(axes) == 1:
+        """The process group of ``axes`` (one name or a tuple, in mesh
+        order), or None where they span one rank."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        axes = tuple(a for a in self.axis_names
+                     if a in axes and self.shape[a] > 1)
+        if not axes:
             return None
         return self._groups[axes]
 
@@ -122,6 +129,20 @@ class Mesh:
             if a in self.axis_names:
                 i = i * self.shape[a] + self.coord[a]
         return i
+
+
+# ``torch.cuda.get_device_properties(0).total_memory`` of the NVIDIA H100
+# 80GB HBM3 as the card reports it (chip_smoke's 3l(e) prints it); the dry
+# run's ``hbm_capacity`` where no card is present
+H100_80GB_HBM3_BYTES = 85_017_493_504
+
+
+def hbm_capacity() -> int:
+    """One card's memory: read from the card where there is one, else the
+    H100's stated figure (:data:`H100_80GB_HBM3_BYTES`)."""
+    if torch.cuda.is_available():
+        return HW["hbm_bytes"]
+    return H100_80GB_HBM3_BYTES
 
 
 class _HW(dict):

@@ -10,18 +10,34 @@ nonlinearities run in exact f32; the casts between the compute dtype and
 f32 mirror the reference.
 
 On a mesh (``Ctx.mesh``, one process per rank) each rank holds its rows
-of the global batch, split over the data axes, and the whole parameter
-tree, as the reference's launcher places the train state replicated.
-The numbers are the reference's GSPMD run's: the per-tensor statistics of
-the activations are taken over the data group (``Ctx.numerics.group``;
-:func:`dense_apply` names its weight replicated), and ``moe_apply`` runs
-the reference's ``shard_map`` expert block (local statistics, per-rank
-capacity, experts over ``model``, the ZeRO-3 gather under ``moe_fsdp``).
-The reference's placement constraints (``Ctx.shard``, attention's head
-shard under ``attn_head_shard``, the residual's sequence sharding) tell
-GSPMD where to put data and leave the numbers as they are; eager tensors
-of one rank have no placement to change, so they have no counterpart
-here.
+of the global batch, split over the data axes.  The numbers are the
+reference's GSPMD run's: the per-tensor statistics of the activations are
+taken over the data group (``Ctx.numerics.group``; :func:`dense_apply`
+names its weight's group None), and ``moe_apply`` runs the reference's
+``shard_map`` expert block (local statistics, per-rank capacity, experts
+over ``model``, the ZeRO-3 gather under ``moe_fsdp``).
+
+``Ctx.placement`` says what else a rank holds.  ``None``: the whole
+parameter tree, as the reference's launcher places the train state
+replicated.  ``"production"``: the blocks of the parameters and caches
+that the reference's dry run (``launch/dryrun.py``'s ``in_shardings``)
+gives one device, ``distributed.sharding.place`` of ``params_pspecs``
+and ``cache_shardings``, and the explicit tensor parallelism that GSPMD
+compiles from them: column-parallel projections (:func:`column_apply`:
+the rank's output columns, whole heads where they divide, else gathered
+over ``model``; each column summed in the whole product's order),
+row-parallel ones (:func:`row_apply`: the rank's rows, summed over
+``model``), the vocab-parallel embedding
+(:func:`embed_apply` with a group), attention on local heads or over a
+sequence-sharded KV cache (the softmax's max and sum taken over
+``model``).  Every per-tensor statistic is still the whole tensor's: an
+operand split over ``model``, or over data and model, takes it over that
+group (``numerics.dot_general(groups=...)``).  Gradients follow
+Megatron's rule: a tensor every model rank holds alike carries the whole
+gradient on each, so only the data axes sum gradients.
+The reference's other placement constraints (``Ctx.shard``, the
+residual's sequence sharding) tell GSPMD where to put data and leave the
+numbers as they are; they have no counterpart here.
 
 KV caches are updated in place (the reference returns new arrays): a
 layer's cache is a view into the model's ``[L, ...]`` stack, and
@@ -34,6 +50,7 @@ import math
 from typing import Any
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch import numerics as N
@@ -92,6 +109,8 @@ class Ctx:
                                      # data axes, gathered per layer
     moe_gather_dtype: Any = None     # cast expert weights before the ZeRO-3
                                      # all-gather (bf16 halves wire bytes)
+    placement: str | None = None     # None: each rank holds the whole tree;
+                                     # "production": the dry run's blocks
 
     def __post_init__(self):
         if self.numerics is None:
@@ -115,31 +134,97 @@ class Ctx:
     def model_group(self):
         return None if self.mesh is None else self.mesh.group(MODEL_AXIS)
 
+    @property
+    def placed(self) -> bool:
+        """Whether the rank holds the production placement's blocks."""
+        if self.placement not in (None, "production"):
+            raise ValueError(f"unknown placement {self.placement!r}")
+        return self.placement == "production" and self.mesh is not None
 
-def dot(a, b, ctx: Ctx, dn=None, op: str = "matmul",
-        replicated: bool = False):
+    @property
+    def joint_group(self):
+        """The group of the data and model axes together: the group of an
+        activation split over both (or None)."""
+        return (None if self.mesh is None
+                else self.mesh.group(DATA_AXES + (MODEL_AXIS,)))
+
+
+def dot(a, b, ctx: Ctx, dn=None, op: str = "matmul", groups=None,
+        column_parts: int = 1):
     """Policy-resolved dot_general; default contracts a's last with b's
-    first dim (op kind "matmul").  ``replicated``: ``b`` is a weight
-    (``numerics.dot_general``)."""
+    first dim (op kind "matmul").  ``groups``, ``column_parts``: the
+    operands' statistics groups and the share of the columns the product
+    computes (``numerics.dot_general``)."""
     if dn is None:
         dn = (((a.ndim - 1,), (0,)), ((), ()))
-    return N.dot_general(a, b, dn, ctx.numerics, op=op,
-                         replicated=replicated)
+    return N.dot_general(a, b, dn, ctx.numerics, op=op, groups=groups,
+                         column_parts=column_parts)
 
 
 # --------------------------------------------------------------------------
 # Primitives
 # --------------------------------------------------------------------------
 
+def randn(shape, gen, device):
+    """A float32 draw from ``gen``; with no generator an empty tensor of
+    the shape (``Model.init_shapes``: shapes only, on the meta device)."""
+    if gen is None:
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    return torch.randn(shape, generator=gen, device=device,
+                       dtype=torch.float32)
+
+
 def dense_init(gen, d_in: int, d_out: int, device, scale: float | None = None):
     scale = scale if scale is not None else d_in ** -0.5
-    w = torch.randn((d_in, d_out), generator=gen, device=device,
-                    dtype=torch.float32)
+    w = randn((d_in, d_out), gen, device)
     return {"w": w.mul_(scale)}
 
 
 def dense_apply(p, x, ctx: Ctx):
-    return dot(x, p["w"], ctx, replicated=True)
+    """``x`` times a weight every rank holds whole (its own statistics)."""
+    return dot(x, p["w"], ctx, groups=(ctx.data_group, None))
+
+
+def column_apply(p, x, ctx: Ctx, n_out: int):
+    """A column-parallel projection of ``x`` (whole over ``model``) onto
+    ``n_out`` global columns: (y, split), ``y`` the rank's block of the
+    columns where the weight is split over ``model`` (``split`` True),
+    else all of them.  The input's gradient is summed over ``model``."""
+    w = p["w"]
+    if not ctx.placed or w.shape[1] == n_out:
+        return dense_apply(p, x, ctx), False
+    mg = ctx.model_group
+    y = dot(C.copy_sum_grad(x, mg), w, ctx, groups=(ctx.data_group, mg),
+            column_parts=C.group_size(mg))
+    return y, True
+
+
+def column_gathered(p, x, ctx: Ctx, n_out: int):
+    """:func:`column_apply` with the columns gathered over ``model``."""
+    y, split = column_apply(p, x, ctx, n_out)
+    return C.gather_replicated(y, -1, ctx.model_group) if split else y
+
+
+def row_apply(p, h, ctx: Ctx, h_split: bool = False):
+    """A row-parallel projection: ``h`` [..., n_in] whole over ``model``,
+    or its rank's block of the features (``h_split``), times the weight;
+    where the weight's rows are split over ``model`` the rank multiplies
+    its block and the partial products are summed over ``model``.  The
+    result is whole on every rank."""
+    w = p["w"]
+    mg = ctx.model_group if ctx.placed else None
+    if mg is None:
+        return dense_apply(p, h, ctx)
+    m = C.group_size(mg)
+    n_in = h.shape[-1] * (m if h_split else 1)
+    if w.shape[0] == n_in:          # the weight is whole
+        if h_split:
+            h = C.gather_replicated(h, -1, mg)
+        return dot(h, w, ctx, groups=(ctx.data_group, None))
+    if not h_split:
+        h = C.take_block(h, -1, mg)
+    y = dot(h, w, ctx, groups=(ctx.joint_group, mg))
+    return C.reduce_sum(y, mg)
 
 
 def rmsnorm_init(d: int, device):
@@ -154,16 +239,32 @@ def rmsnorm_apply(p, x, eps: float = 1e-6):
 
 
 def embed_init(gen, vocab_p: int, d: int, device):
-    e = torch.randn((vocab_p, d), generator=gen, device=device,
-                    dtype=torch.float32)
+    e = randn((vocab_p, d), gen, device)
     return {"e": e.mul_(0.02)}
 
 
-def embed_apply(p, ids):
+def embed_apply(p, ids, group=None):
+    """The embedding rows of ``ids``.  ``group``: the table is split by
+    vocab rows over this group (the model axis); each rank looks up the
+    ids it holds, zeros the rest, and the ranks' rows are summed (one
+    nonzero term each, so the sum is the row itself)."""
+    e = p["e"]
+    shape = tuple(ids.shape) + (e.shape[1],)
+    ids = ids.reshape(-1).to(torch.long)
+    if group is not None:
+        v_l = e.shape[0]
+        local = ids - dist.get_rank(group) * v_l
+        mine = (local >= 0) & (local < v_l)
+        ids = torch.where(mine, local, torch.zeros_like(local))
     # index_select: its backward (index_add) runs a deterministic algorithm
     # on a CUDA card under torch.use_deterministic_algorithms
-    rows = torch.index_select(p["e"], 0, ids.reshape(-1).to(torch.long))
-    return rows.reshape(*ids.shape, p["e"].shape[1])
+    rows = torch.index_select(e, 0, ids)
+    if group is not None:
+        rows = C.reduce_sum(torch.where(mine[:, None], rows,
+                                        torch.zeros((), dtype=rows.dtype,
+                                                    device=rows.device)),
+                            group)
+    return rows.reshape(shape)
 
 
 def rope(x, positions, theta: float):
@@ -202,22 +303,23 @@ def attention_init(gen, cfg, device):
     return p
 
 
-def _attn_scores(q, k, ctx: Ctx, softcap):
+def _attn_scores(q, k, ctx: Ctx, softcap, groups=None):
     # q: [B, T, H, hd], k: [B, S, KV, hd] (grouped) -> [B, KV, T, group, S]
     B, T, H, hd = q.shape
     KV = k.shape[2]
     group = H // KV
     qg = q.reshape(B, T, KV, group, hd)
     dn = (((4,), (3,)), ((0, 2), (0, 2)))  # contract hd; batch B, KV
-    s = N.dot_general(qg, k, dn, ctx.numerics, op="qk")
+    s = N.dot_general(qg, k, dn, ctx.numerics, op="qk", groups=groups)
     s = s * (hd ** -0.5)
     return _softcap(s.to(torch.float32), softcap)
 
 
-def _attn_values(p, v, ctx: Ctx):
+def _attn_values(p, v, ctx: Ctx, groups=None):
     # p: [B, KV, T, group, S], v: [B, S, KV, hd] -> [B, T, KV*group*hd]
     dn = (((4,), (1,)), ((0, 1), (0, 2)))
-    o = N.dot_general(p, v, dn, ctx.numerics, op="pv")  # [B,KV,T,group,hd]
+    o = N.dot_general(p, v, dn, ctx.numerics, op="pv",
+                      groups=groups)                       # [B,KV,T,group,hd]
     B, KV, T, group, hd = o.shape
     return o.movedim(1, 2).reshape(B, T, KV * group * hd)
 
@@ -235,16 +337,136 @@ def causal_window_mask(t_pos, s_pos, window):
     return m & window_ok(t_pos[:, None], s_pos[None, :], window)
 
 
-def _maybe_qk_norm(p, q, k):
+def _maybe_qk_norm(p, q, k, q_grad_group=None, k_grad_group=None):
+    """q/k RMS norms where the config has them; a norm weight applied to
+    the rank's own heads only has its gradient summed over the group
+    given for it."""
     if "qn" in p:
-        q = rmsnorm_apply(p["qn"], q)
-        k = rmsnorm_apply(p["kn"], k)
+        q = rmsnorm_apply({"g": C.copy_sum_grad(p["qn"]["g"], q_grad_group)},
+                          q)
+        k = rmsnorm_apply({"g": C.copy_sum_grad(p["kn"]["g"], k_grad_group)},
+                          k)
     return q, k
 
 
 def _decode_positions(ctx: Ctx, B: int, device):
     pos = torch.as_tensor(ctx.decode_pos, dtype=torch.int32, device=device)
     return pos.expand(B).contiguous() if pos.ndim == 0 else pos
+
+
+@dataclasses.dataclass(frozen=True)
+class _Heads:
+    """The attention heads one rank computes.  ``q_local``: its own block
+    of the q heads (H / model of them), else all; with ``n_kv`` set, its
+    q heads are local, the rank holds all the KV heads and attends with
+    ``kv0 .. kv0 + n_kv - 1``, those its q heads use (every KV head is
+    then taken by as many ranks, so statistics summed over ``model`` are
+    the whole tensor's)."""
+    q_local: bool = False
+    kv0: int = 0
+    n_kv: int | None = None
+
+
+def _attn_qkv(p, x, ctx: Ctx, cfg, positions, gather_q: bool = False):
+    """q [B, T, Hh, hd] of the heads the rank computes, k/v [B, T, KVh,
+    hd] of all KV heads it holds (the cache's write), the KV heads it
+    attends with, and the :class:`_Heads` layout.  Without the production
+    placement every head, as on one device."""
+    B, T, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    mg = ctx.model_group if ctx.placed else None
+    m = C.group_size(mg)
+    qc, q_split = column_apply(p["wq"], x, ctx, H * hd)
+    kc, kv_split = column_apply(p["wk"], x, ctx, KV * hd)
+    vc, _ = column_apply(p["wv"], x, ctx, KV * hd)
+    g, h_l = H // KV, H // m
+    q_local = (q_split and not gather_q and H % m == 0
+               and (g % h_l == 0 or h_l % g == 0))
+    kv_local = q_local and kv_split and KV % m == 0
+    if q_split and not q_local:
+        qc = C.gather_replicated(qc, -1, mg)
+    if kv_split and not kv_local:
+        kc = C.gather_replicated(kc, -1, mg)
+        vc = C.gather_replicated(vc, -1, mg)
+    q = qc.reshape(B, T, -1, hd)
+    k = kc.reshape(B, T, -1, hd)
+    v = vc.reshape(B, T, -1, hd)
+    q, k = _maybe_qk_norm(p, q, k, mg if q_local else None,
+                          mg if kv_local else None)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    heads = _Heads(q_local)
+    ka, va = k, v
+    if q_local and not kv_local:
+        r = dist.get_rank(mg)
+        n_kv = max(1, h_l // g)
+        heads = _Heads(True, (r * h_l) // g, n_kv)
+        # each rank attends with its q heads' KV heads: their gradient is
+        # the sum of the ranks' parts
+        ka = C.copy_sum_grad(k, mg)[:, :, heads.kv0:heads.kv0 + n_kv]
+        va = C.copy_sum_grad(v, mg)[:, :, heads.kv0:heads.kv0 + n_kv]
+    return q, k, v, ka, va, heads
+
+
+def _kv_view(t, heads: _Heads):
+    """The KV heads a rank attends with, of a cache holding all of them."""
+    if heads.n_kv is None:
+        return t
+    return t[:, :, heads.kv0:heads.kv0 + heads.n_kv]
+
+
+def _seq_sharded(ctx: Ctx, cfg) -> bool:
+    """Whether the rank's dense KV cache holds its block of positions:
+    under the production placement where the KV heads do not divide
+    ``model`` (``sharding.cache_spec``; ``Model.init_cache(mesh=...)``
+    refuses such a cache whose positions do not divide either)."""
+    if not ctx.placed:
+        return False
+    m = C.group_size(ctx.model_group)
+    return m > 1 and cfg.n_kv_heads % m != 0
+
+
+def _decode_seq_sharded(q, k, v, ck, cv, ctx: Ctx, cfg, window, pos_b):
+    """Single-token decode over a KV cache whose positions are split over
+    ``model``: the rank holding the new token's position writes its K/V,
+    each rank scores its positions, the softmax's max and sum are taken
+    over ``model``, and the ranks' partial P.V are summed: the whole
+    cache's attention, each operand's statistics over data and model."""
+    mg, jg = ctx.model_group, ctx.joint_group
+    B = q.shape[0]
+    S = ck.shape[1]
+    lo = dist.get_rank(mg) * S
+    pc = cache_policy_pc(ctx, ck.dtype)
+    rows = torch.arange(B, device=q.device)
+    off = (pos_b - lo).to(torch.long)
+    mine = (off >= 0) & (off < S)
+    at = torch.clamp(off, 0, S - 1)
+    for c, new in ((ck, k), (cv, v)):
+        w = cache_encode(new[:, 0], c.dtype, pc)
+        c[rows, at] = torch.where(mine[:, None, None], w, c[rows, at])
+    s_pos = lo + torch.arange(S, device=q.device)
+    kd = cache_decode(ck, q.dtype, pc)
+    vd = cache_decode(cv, q.dtype, pc)
+    scores = _attn_scores(q, kd, ctx, cfg.attn_softcap,
+                          groups=(ctx.data_group, jg))     # [B,KV,1,g,S]
+    valid = s_pos[None, :] <= pos_b[:, None]
+    valid = valid & window_ok(pos_b[:, None], s_pos[None, :], window)
+    scores = torch.where(valid[:, None, None, None, :], scores,
+                         torch.tensor(_NEG, device=q.device))
+    return seq_sharded_attend(scores, vd, ctx)
+
+
+def seq_sharded_attend(scores, vd, ctx: Ctx):
+    """softmax(scores) . v for scores [B, KV, T, g, S_l] and values [B,
+    S_l, KV, hd] of the rank's block of positions: the max and the sum
+    over ``model`` (the log-sum-exp combine), then the rank's partial
+    P.V summed over ``model``."""
+    mg, jg = ctx.model_group, ctx.joint_group
+    mx = C.all_reduce(scores.amax(-1, keepdim=True), mg, dist.ReduceOp.MAX)
+    e = _X.exp(scores - mx)
+    probs = (e / C.all_reduce(e.sum(-1, keepdim=True), mg)).to(vd.dtype)
+    out = _attn_values(probs, vd, ctx, groups=(jg, jg))
+    return C.reduce_sum(out, mg)
 
 
 @N.scoped("attn")
@@ -256,18 +478,29 @@ def attention_apply(p, x, ctx: Ctx, cfg, window, positions,
     and T > 1 — prefill (flash attention + KV slab write); cache given and
     T == 1 — single-token decode at ``ctx.decode_pos`` (paged when
     ``ctx.page_table`` is set).  ``window``: int (< 0 = global) or None.
+    Under the production placement (``Ctx.placement``) the rank computes
+    the heads of :func:`_attn_qkv` and holds its block of a dense cache:
+    its KV heads, or its positions (a decode over them is
+    :func:`_decode_seq_sharded`).
     """
     B, T, d = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    seq_split = cache is not None and _seq_sharded(ctx, cfg)
+    q, k, v, ka, va, heads = _attn_qkv(p, x, ctx, cfg, positions,
+                                       gather_q=seq_split and T == 1)
+    hd = q.shape[-1]
+    mg = ctx.model_group if ctx.placed else None
+    # the statistics groups of the qk and pv operands where the placement
+    # splits them over model; else the context's (the data group)
+    grp = (ctx.joint_group, ctx.joint_group) if heads.q_local else None
 
-    q = dense_apply(p["wq"], x, ctx).reshape(B, T, H, hd)
-    k = dense_apply(p["wk"], x, ctx).reshape(B, T, KV, hd)
-    v = dense_apply(p["wv"], x, ctx).reshape(B, T, KV, hd)
-    q, k = _maybe_qk_norm(p, q, k)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    def out_proj(out):
+        return row_apply(p["wo"], out.to(x.dtype), ctx, heads.q_local)
 
     if cache is not None and T == 1 and ctx.page_table is not None:
+        if ctx.placed:
+            raise NotImplementedError(
+                "the production placement runs dense caches only (the "
+                "dry run's build_cell uses init_cache)")
         # ---- paged decode ----
         # The cache is the shared page pool [P, page_size, KV, hd]; this
         # slot's token goes to the physical page its table names for the
@@ -292,8 +525,13 @@ def attention_apply(p, x, ctx: Ctx, cfg, window, positions,
         out = N.decode_attention(q, kp, vp, table, pos_b, ctx.numerics,
                                  pc=pc, softcap=cfg.attn_softcap,
                                  window=window)
-        y = dense_apply(p["wo"], out.to(x.dtype), ctx)
-        return y, cache
+        return out_proj(out), cache
+
+    if cache is not None and T == 1 and seq_split:
+        pos_b = _decode_positions(ctx, B, x.device)
+        out = _decode_seq_sharded(q, k, v, cache["k"], cache["v"], ctx, cfg,
+                                  window, pos_b)
+        return out_proj(out), cache
 
     if cache is not None and T == 1:
         # ---- dense decode: every slot at its own position ----
@@ -306,17 +544,17 @@ def attention_apply(p, x, ctx: Ctx, cfg, window, positions,
         cv[rows, prow] = cache_encode(v[:, 0], cv.dtype, pc)
         S = ck.shape[1]
         s_pos = torch.arange(S, device=x.device)
-        kd = cache_decode(ck, x.dtype, pc)
-        vd = cache_decode(cv, x.dtype, pc)
-        scores = _attn_scores(q, kd, ctx, cfg.attn_softcap)  # [B,KV,1,g,S]
+        kd = _kv_view(cache_decode(ck, x.dtype, pc), heads)
+        vd = _kv_view(cache_decode(cv, x.dtype, pc), heads)
+        scores = _attn_scores(q, kd, ctx, cfg.attn_softcap,
+                              groups=grp)                  # [B,KV,1,g,S]
         valid = s_pos[None, :] <= pos_b[:, None]             # [B, S]
         valid = valid & window_ok(pos_b[:, None], s_pos[None, :], window)
         scores = torch.where(valid[:, None, None, None, :], scores,
                              torch.tensor(_NEG, device=x.device))
         probs = _X.softmax(scores, dim=-1).to(vd.dtype)
-        out = _attn_values(probs, vd, ctx)
-        y = dense_apply(p["wo"], out.to(x.dtype), ctx)
-        return y, cache
+        out = _attn_values(probs, vd, ctx, groups=grp)
+        return out_proj(out), cache
 
     # ---- forward / prefill: chunked (flash-style) causal attention ----
     # chunk sizes must divide T: fall back to the largest divisor <= chunk
@@ -327,23 +565,24 @@ def attention_apply(p, x, ctx: Ctx, cfg, window, positions,
     while T % kc:
         kc -= 1
     n_q, n_k = T // qc, T // kc
-    group = H // KV
+    Hh, KVh = q.shape[2], ka.shape[2]
+    group = Hh // KVh
     dev = x.device
     neg = torch.tensor(_NEG, device=dev)
     outs = []
     for qi in range(n_q):
         q_i = q[:, qi * qc:(qi + 1) * qc]
         t_idx = torch.arange(qc, device=dev) + qi * qc
-        m_run = torch.full((B, KV, qc, group), _NEG, dtype=torch.float32,
+        m_run = torch.full((B, KVh, qc, group), _NEG, dtype=torch.float32,
                            device=dev)
-        l_run = torch.zeros((B, KV, qc, group), dtype=torch.float32,
+        l_run = torch.zeros((B, KVh, qc, group), dtype=torch.float32,
                             device=dev)
-        acc = torch.zeros((B, KV, qc, group, hd), dtype=torch.float32,
+        acc = torch.zeros((B, KVh, qc, group, hd), dtype=torch.float32,
                           device=dev)
         for ki in range(n_k):
-            k_i = k[:, ki * kc:(ki + 1) * kc]
-            v_i = v[:, ki * kc:(ki + 1) * kc]
-            s = _attn_scores(q_i, k_i, ctx, cfg.attn_softcap)
+            k_i = ka[:, ki * kc:(ki + 1) * kc]
+            v_i = va[:, ki * kc:(ki + 1) * kc]
+            s = _attn_scores(q_i, k_i, ctx, cfg.attn_softcap, groups=grp)
             s_idx = torch.arange(kc, device=dev) + ki * kc
             mask = causal_window_mask(t_idx, s_idx, window)
             s = torch.where(mask[None, None, :, None, :], s, neg)
@@ -353,18 +592,27 @@ def attention_apply(p, x, ctx: Ctx, cfg, window, positions,
             l_run = l_run * alpha + pexp.sum(-1)
             dn = (((4,), (1,)), ((0, 1), (0, 2)))
             o = N.dot_general(pexp.to(v_i.dtype), v_i, dn, ctx.numerics,
-                              op="pv")
+                              op="pv", groups=grp)
             acc = acc * alpha[..., None] + o
             m_run = m_new
         out = acc / torch.clamp(l_run[..., None], min=1e-30)
-        outs.append(out.movedim(2, 1).reshape(B, qc, H * hd))
+        outs.append(out.movedim(2, 1).reshape(B, qc, Hh * hd))
     out = torch.cat(outs, 1) if len(outs) > 1 else outs[0]
-    y = dense_apply(p["wo"], out.to(x.dtype), ctx)
+    y = out_proj(out)
 
     if cache is not None:  # prefill: write the K/V slab at offset 0
         pc = cache_policy_pc(ctx, cache["k"].dtype)
-        cache["k"][:, :T] = cache_encode(k, cache["k"].dtype, pc)
-        cache["v"][:, :T] = cache_encode(v, cache["v"].dtype, pc)
+        if seq_split:      # the rank's block of positions
+            S = cache["k"].shape[1]
+            lo = dist.get_rank(mg) * S
+            n = max(0, min(T - lo, S))
+            cache["k"][:, :n] = cache_encode(k[:, lo:lo + n],
+                                             cache["k"].dtype, pc)
+            cache["v"][:, :n] = cache_encode(v[:, lo:lo + n],
+                                             cache["v"].dtype, pc)
+        else:
+            cache["k"][:, :T] = cache_encode(k, cache["k"].dtype, pc)
+            cache["v"][:, :T] = cache_encode(v, cache["v"].dtype, pc)
     return y, cache
 
 
@@ -401,12 +649,19 @@ def mlp_init(gen, cfg, device, d_ff=None):
 
 
 @N.scoped("mlp")
-def mlp_apply(p, x, ctx: Ctx, kind: str):
-    h = dense_apply(p["wi"], x, ctx)
-    if kind == "silu_gated":
-        h = _X.silu(dense_apply(p["wg"], x, ctx)) * h
-    elif kind == "gelu_gated":
-        h = _X.gelu_tanh(dense_apply(p["wg"], x, ctx)) * h
+def mlp_apply(p, x, ctx: Ctx, kind: str, d_ff: int | None = None):
+    """The MLP; under the production placement ``wi``/``wg`` are
+    column-parallel and ``wo`` row-parallel onto ``d_ff`` (the global
+    hidden width), the hidden activation the rank's block of features
+    between them."""
+    f = p["wi"]["w"].shape[1] if d_ff is None else d_ff
+    h, split = column_apply(p["wi"], x, ctx, f)
+    if kind in ("silu_gated", "gelu_gated"):
+        gate, split_g = column_apply(p["wg"], x, ctx, f)
+        if split_g != split:
+            raise ValueError("wi and wg are split differently")
+        act = _X.silu if kind == "silu_gated" else _X.gelu_tanh
+        h = act(gate) * h
     elif kind == "relu2":  # squared ReLU (nemotron)
         r = F.relu(h)
         h = r * r
@@ -414,7 +669,7 @@ def mlp_apply(p, x, ctx: Ctx, kind: str):
         h = _X.gelu_tanh(h)
     else:
         raise ValueError(kind)
-    return dense_apply(p["wo"], h, ctx)
+    return row_apply(p["wo"], h, ctx, split)
 
 
 # --------------------------------------------------------------------------
@@ -425,8 +680,7 @@ def moe_init(gen, cfg, device):
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
 
     def experts(d_in, d_out):
-        w = torch.randn((E, d_in, d_out), generator=gen, device=device,
-                        dtype=torch.float32)
+        w = randn((E, d_in, d_out), gen, device)
         return {"w": w.mul_(d_in ** -0.5)}
 
     p = {"router": dense_init(gen, d, E, device, scale=0.02),
@@ -493,10 +747,13 @@ def _moe_expert_block(xt, ids, gates, wi, wg, wo, cap: int, nctx,
     E = wi.shape[0]
     flat_e, rank, keep = moe_dispatch(ids, E, cap, e0)
     tok = torch.arange(n, device=xt.device).repeat_interleave(k)
-    # kept (expert, rank) slots are unique: a plain indexed write
-    buf = torch.zeros((E, cap, d), dtype=xt.dtype, device=xt.device)
-    buf = buf.index_put((flat_e[keep], rank[keep].to(torch.long)),
-                        xt[tok[keep]])
+    # kept (expert, rank) slots are unique: a plain indexed write; the
+    # dropped choices write a junk expert row E, cut off after (no mask
+    # selects a data-dependent number of rows)
+    buf = torch.zeros((E + 1, cap, d), dtype=xt.dtype, device=xt.device)
+    buf = buf.index_put((torch.where(keep, flat_e, E),
+                         torch.where(keep, rank, 0).to(torch.long)),
+                        xt[tok])[:E]
     dnb = (((2,), (1,)), ((0,), (0,)))
     h = N.dot_general(buf, wi, dnb, nctx, op="matmul")
     g = N.dot_general(buf, wg, dnb, nctx, op="matmul")
@@ -525,11 +782,16 @@ def _moe_expert_parallel(p, xt, ids, gates, ctx: Ctx, cap: int):
     rank's block is copied to the tokens' device."""
     mesh, dg, mg = ctx.mesh, ctx.data_group, ctx.model_group
     msz = C.group_size(mg)
-    E_l = p["wi"]["w"].shape[0] // msz
-    e0 = mesh.coord[MODEL_AXIS] * E_l if msz > 1 else 0
-    wi, wg, wo = (p[n]["w"][e0:e0 + E_l] for n in ("wi", "wg", "wo"))
     fsdp = ctx.moe_fsdp and dg is not None
-    if fsdp:
+    if ctx.placed:       # the rank holds its experts' (ZeRO-3) block
+        wi, wg, wo = (p[n]["w"] for n in ("wi", "wg", "wo"))
+        E_l = wi.shape[0]
+        e0 = mesh.coord[MODEL_AXIS] * E_l if msz > 1 else 0
+    else:
+        E_l = p["wi"]["w"].shape[0] // msz
+        e0 = mesh.coord[MODEL_AXIS] * E_l if msz > 1 else 0
+        wi, wg, wo = (p[n]["w"][e0:e0 + E_l] for n in ("wi", "wg", "wo"))
+    if fsdp and not ctx.placed:
         dp, r = C.group_size(dg), mesh.index(DATA_AXES)
         f_l = wi.shape[2] // dp
         wi, wg = (w[:, :, r * f_l:(r + 1) * f_l] for w in (wi, wg))
@@ -580,7 +842,7 @@ def moe_apply(p, x, ctx: Ctx, cfg):
         y = _moe_expert_block(xt, ids, gates, p["wi"]["w"], p["wg"]["w"],
                               p["wo"]["w"], cap, ctx.numerics)
     if cfg.moe_dense_residual:
-        y = y + mlp_apply(p["dense"], xt, ctx, "silu_gated")
+        y = y + mlp_apply(p["dense"], xt, ctx, "silu_gated", cfg.d_ff)
     onehot = F.one_hot(ids[:, 0], E).to(torch.float32)
     if dg is None:
         me, ce = torch.mean(probs, 0), torch.mean(onehot, 0)

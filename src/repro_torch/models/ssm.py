@@ -14,7 +14,11 @@ through ``jax.grad`` in the reference (the log-decay masked before
 batch dimensions, so the ``cuda`` backend runs them on the reference
 engine, as the reference's Pallas backend does.  ``in_proj`` and
 ``out_proj`` are plain projections and reach the fused encode and logmac on
-``cuda``.  The cross-chunk state accumulation and the decode recurrence
+``cuda``.  Under the production placement (``Ctx.placement``) ``in_proj``
+is column-parallel with its packed [z, x, B, C, dt] columns gathered,
+the rank runs its block of the heads where ``A_log`` is split over
+``model`` (the gated norm's mean summed over ``model``), and ``out_proj``
+is row-parallel.  The cross-chunk state accumulation and the decode recurrence
 stay exact f32.
 
 Caches are updated in place: ``ssm_apply`` writes the new state and conv
@@ -32,7 +36,10 @@ from repro_torch import numerics as NU  # 'N' is the SSM state dim locally
 from repro_torch.core import posit as _P
 from repro_torch.core import xla_f32 as _X
 
-from .layers import Ctx, cache_reset, dense_apply, dense_init
+from repro_torch.distributed import collectives as C
+
+from .layers import (Ctx, cache_reset, column_gathered, dense_init, randn,
+                     row_apply)
 
 
 def ssm_init(gen, cfg, device):
@@ -43,7 +50,7 @@ def ssm_init(gen, cfg, device):
     conv_dim = di + 2 * N  # conv over [x, B, C] as in the reference impl
     d_proj = 2 * di + 2 * N + H  # in_proj emits [z, x, B, C, dt]
     f32 = dict(dtype=torch.float32, device=device)
-    conv_w = torch.randn((K, conv_dim), generator=gen, **f32)
+    conv_w = randn((K, conv_dim), gen, device)
     return {
         "in_proj": dense_init(gen, d, d_proj, device),
         "conv_w": conv_w.mul_((K * conv_dim) ** -0.5),
@@ -57,9 +64,17 @@ def ssm_init(gen, cfg, device):
     }
 
 
-def _gated_rmsnorm(y, z, g, eps=1e-6):
+def _gated_rmsnorm(y, z, g, eps=1e-6, group=None):
+    """The gated RMS norm over the last dim; ``group``: the dim is split
+    over it (the model axis), so the mean is the group's sum over the
+    whole width."""
     y = y * _X.silu(z.to(torch.float32))
-    var = _X.mean_last(y * y)
+    if group is None:
+        var = _X.mean_last(y * y)
+    else:   # every rank's features take part in the mean's gradient
+        var = C.copy_sum_grad(C.reduce_sum((y * y).sum(-1, keepdim=True),
+                                           group), group) / (
+            y.shape[-1] * C.group_size(group))
     return y * _X.rsqrt(var + eps) * g
 
 
@@ -126,7 +141,8 @@ def log_step_scan(x, dim: int):
     return x
 
 
-def ssd_chunked(x, dt, A, Bm, Cm, ctx: Ctx, chunk: int, initial_state=None):
+def ssd_chunked(x, dt, A, Bm, Cm, ctx: Ctx, chunk: int, initial_state=None,
+                heads_split: bool = False):
     """Chunked SSD: a loop over chunks carrying the [B, H, N, P] state,
     which accumulates exactly in f32 (the quire analogue).
 
@@ -135,9 +151,16 @@ def ssd_chunked(x, dt, A, Bm, Cm, ctx: Ctx, chunk: int, initial_state=None):
       dt: [B, T, H]    softplus'd step sizes.
       A:  [H]          negative decay rates.
       Bm/Cm: [B, T, N] input/output projections (G=1 group, shared by heads).
+      heads_split: x, dt and A hold the rank's block of the heads (the
+        production placement): operands over heads take their statistics
+        over data and model, B and C (shared by the heads) over data.
     Returns:
       y: [B, T, H, P], final_state [B, H, N, P].
     """
+    gh = ctx.joint_group if heads_split else ctx.data_group
+    gd = ctx.data_group
+    g_bc, g_hh, g_bh = ((gd, gd), (gh, gh), (gd, gh)) if heads_split else (
+        None, None, None)
     Bsz, T, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, T)
@@ -157,7 +180,8 @@ def ssd_chunked(x, dt, A, Bm, Cm, ctx: Ctx, chunk: int, initial_state=None):
         cum = cumsum(dA, 1)
         # intra-chunk dual form: scores[i,j] = C_i · B_j (EULER-quantized)
         dn = (((2,), (2,)), ((0,), (0,)))
-        scores = NU.dot_general(Cq, Bq, dn, ctx.numerics, op="qk")
+        scores = NU.dot_general(Cq, Bq, dn, ctx.numerics, op="qk",
+                                groups=g_bc)
         # mask the log-decay BEFORE exp (the reference's where-grad guard)
         ldiff = cum[:, :, None, :] - cum[:, None, :, :]        # [B,Qi,Qj,H]
         ldiff = torch.where(causal[None, :, :, None], ldiff, neg)
@@ -166,16 +190,19 @@ def ssd_chunked(x, dt, A, Bm, Cm, ctx: Ctx, chunk: int, initial_state=None):
         # y_intra[i,h,p] = sum_j M[i,j,h] xdt[j,h,p]
         dn2 = (((3,), (1,)), ((0, 1), (0, 2)))  # [B,H,Qi,Qj] x [B,Qj,H,P]
         y_intra = NU.dot_general(M.movedim(-1, 1), xdt, dn2, ctx.numerics,
-                                 op="pv").movedim(1, 2)        # [B,Qi,H,P]
+                                 op="pv", groups=g_hh
+                                 ).movedim(1, 2)               # [B,Qi,H,P]
         # inter-chunk: y_inter[i] = exp(cum_i) * (C_i · S_in)
         dn3 = (((2,), (1,)), ((0,), (0,)))  # Cq [B,Q,N] x S_in [B,N,H,P]
-        y_inter = NU.dot_general(Cq, S.movedim(1, 2), dn3, ctx.numerics)
+        y_inter = NU.dot_general(Cq, S.movedim(1, 2), dn3, ctx.numerics,
+                                 groups=g_bh)
         y_inter = y_inter * _X.exp(cum)[..., None]
         # state update: S_out = decay * S_in + sum_j B_j ⊗ (w_j x_j)
         decay_out = _X.exp(cum[:, -1:, :] - cum)               # [B,Q,H]
         w = xdt * decay_out[..., None]                         # [B,Q,H,P]
         dn4 = (((1,), (1,)), ((0,), (0,)))  # contract Q
-        S_chunk = NU.dot_general(Bq, w, dn4, ctx.numerics).movedim(1, 2)
+        S_chunk = NU.dot_general(Bq, w, dn4, ctx.numerics,
+                                 groups=g_bh).movedim(1, 2)
         chunk_decay = _X.exp(cum[:, -1, :])                    # [B,H]
         S = S * chunk_decay[:, :, None, None] + S_chunk
         ys.append(y_intra + y_inter)
@@ -193,8 +220,19 @@ def ssm_apply(p, x, ctx: Ctx, cfg, cache=None):
     H, P = cfg.n_ssm_heads, cfg.ssm_head_dim
     K = cfg.conv_kernel
 
-    zxbcdt = dense_apply(p["in_proj"], x, ctx)  # [B, T, 2di+2N+H]
+    # under the production placement in_proj's packed columns are
+    # gathered; where A_log, D and dt_bias are split over model the rank
+    # runs its block of the heads (and of z, the norm and out_proj's rows)
+    zxbcdt = column_gathered(p["in_proj"], x, ctx,
+                             2 * di + 2 * N + H)    # [B, T, 2di+2N+H]
     z, xBC, dt_raw = _split_proj(zxbcdt, cfg)
+    mg = ctx.model_group if ctx.placed else None
+    split = mg is not None and p["A_log"].shape[0] != H
+    hg = mg if split else None     # the heads' group, where split
+    H = p["A_log"].shape[0]
+    z = C.take_block(z, -1, hg)
+    dt_raw = C.take_block(dt_raw, -1, hg)
+    norm_g = C.take_block(p["norm_g"], -1, hg)
     A = -_X.exp(p["A_log"])  # [H]
     dt = _X.softplus(dt_raw.to(torch.float32) + p["dt_bias"])  # [B,T,H]
 
@@ -205,9 +243,9 @@ def ssm_apply(p, x, ctx: Ctx, cfg, cache=None):
         conv_out = torch.einsum("bkc,kc->bc", conv_from_cache(window),
                                 p["conv_w"]) + p["conv_b"]
         conv_out = _X.silu(conv_out)[:, None, :]  # [B,1,cd]
-        xin = conv_out[..., :di].reshape(Bsz, 1, H, P)
-        Bm = conv_out[..., di:di + N]
-        Cm = conv_out[..., di + N:]
+        xin = C.take_block(conv_out[..., :di].reshape(Bsz, 1, -1, P), 2, hg)
+        Bm = C.copy_sum_grad(conv_out[..., di:di + N], hg)
+        Cm = C.copy_sum_grad(conv_out[..., di + N:], hg)
         S = cache["state"]  # [B, H, N, P]
         dA = _X.exp(dt[:, 0, :] * A)  # [B,H]
         dBx = (dt[:, 0, :, None, None] * Bm[:, 0, None, :, None]
@@ -215,21 +253,23 @@ def ssm_apply(p, x, ctx: Ctx, cfg, cache=None):
         S_new = S * dA[:, :, None, None] + dBx
         y = torch.einsum("bn,bhnp->bhp", Cm[:, 0], S_new)  # contract N
         y = y + p["D"][None, :, None] * xin[:, 0]
-        y = _gated_rmsnorm(y.reshape(Bsz, 1, di), z, p["norm_g"])
-        out = dense_apply(p["out_proj"], y.to(x.dtype), ctx)
+        y = _gated_rmsnorm(y.reshape(Bsz, 1, H * P), z, norm_g, group=hg)
+        out = row_apply(p["out_proj"], y.to(x.dtype), ctx, split)
         cache["state"].copy_(S_new)
         cache["conv"].copy_(window[:, 1:, :])
         return out, cache
 
     # ---- chunked forward / prefill ----
     conv_out = _X.silu(_causal_conv(xBC, p["conv_w"], p["conv_b"]))
-    xin = conv_out[..., :di].reshape(Bsz, T, H, P)
-    Bm = conv_out[..., di:di + N]
-    Cm = conv_out[..., di + N:]
-    y, S_final = ssd_chunked(xin, dt, A, Bm, Cm, ctx, cfg.ssm_chunk)
+    xin = C.take_block(conv_out[..., :di].reshape(Bsz, T, -1, P), 2, hg)
+    # B and C serve every head: their gradient sums the ranks' heads'
+    Bm = C.copy_sum_grad(conv_out[..., di:di + N], hg)
+    Cm = C.copy_sum_grad(conv_out[..., di + N:], hg)
+    y, S_final = ssd_chunked(xin, dt, A, Bm, Cm, ctx, cfg.ssm_chunk,
+                             heads_split=split)
     y = y + p["D"][None, None, :, None] * xin
-    y = _gated_rmsnorm(y.reshape(Bsz, T, di), z, p["norm_g"])
-    out = dense_apply(p["out_proj"], y.to(x.dtype), ctx)
+    y = _gated_rmsnorm(y.reshape(Bsz, T, H * P), z, norm_g, group=hg)
+    out = row_apply(p["out_proj"], y.to(x.dtype), ctx, split)
     if cache is not None:  # prefill: carry the final state + conv tail
         cache["state"].copy_(S_final)
         cache["conv"].copy_(conv_to_cache(xBC[:, T - (K - 1):, :],

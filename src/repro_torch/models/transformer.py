@@ -38,6 +38,7 @@ import dataclasses
 import functools
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -127,8 +128,8 @@ class Model:
     # Parameters
     # ------------------------------------------------------------------
 
-    def _block_init(self, gen):
-        cfg, dev = self.cfg, self.device
+    def _block_init(self, gen, dev):
+        cfg = self.cfg
         fam = cfg.family
         p = {"ln1": L.rmsnorm_init(cfg.d_model, dev)}
         if fam != "ssm":
@@ -154,14 +155,23 @@ class Model:
         """Random parameters with the reference's shapes and init scales,
         drawn from a ``torch.Generator`` seeded with ``seed`` on the model's
         device (the numbers differ from the reference's PRNG)."""
-        cfg = self.cfg
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
+        return self._init_tree(gen, self.device)
+
+    def init_shapes(self):
+        """The parameter tree's shapes and dtypes, drawing nothing: the
+        tree of :meth:`init` on the ``meta`` device (the counterpart of
+        ``jax.eval_shape(model.init, key)``)."""
+        return self._init_tree(None, torch.device("meta"))
+
+    def _init_tree(self, gen, dev):
+        cfg = self.cfg
         return {
-            "embed": L.embed_init(gen, cfg.vocab_padded, cfg.d_model,
-                                  self.device),
-            "layers": [self._block_init(gen) for _ in range(cfg.n_layers)],
-            "ln_f": L.rmsnorm_init(cfg.d_model, self.device),
+            "embed": L.embed_init(gen, cfg.vocab_padded, cfg.d_model, dev),
+            "layers": [self._block_init(gen, dev)
+                       for _ in range(cfg.n_layers)],
+            "ln_f": L.rmsnorm_init(cfg.d_model, dev),
         }
 
     @staticmethod
@@ -209,7 +219,7 @@ class Model:
                        + L.rmsnorm_apply(p["bn_s"], hs))
             x = x + h.to(x.dtype)
             x = x + L.mlp_apply(p["mlp"], L.rmsnorm_apply(p["ln2"], x), ctx,
-                                cfg.mlp).to(x.dtype)
+                                cfg.mlp, cfg.d_ff).to(x.dtype)
             return x, cache, aux
         # attention families: dense / audio / vlm / moe
         h, cache = L.attention_apply(p["attn"], L.rmsnorm_apply(p["ln1"], x),
@@ -223,7 +233,7 @@ class Model:
         if cfg.family == "moe":
             h, aux = L.moe_apply(p["moe"], xin, ctx, cfg)
         else:
-            h = L.mlp_apply(p["mlp"], xin, ctx, cfg.mlp)
+            h = L.mlp_apply(p["mlp"], xin, ctx, cfg.mlp, cfg.d_ff)
         if cfg.post_norm:
             h = L.rmsnorm_apply(p["pn2"], h)
         x = x + h.to(x.dtype)
@@ -248,7 +258,9 @@ class Model:
         if torch.is_floating_point(inputs):
             x = inputs.to(self.compute_dtype)
         else:
-            x = L.embed_apply(params["embed"], inputs).to(self.compute_dtype)
+            x = L.embed_apply(params["embed"], inputs,
+                              self._vocab_group(params, ctx)
+                              ).to(self.compute_dtype)
         T = x.shape[1]
         if positions is None:
             if ctx.decode_pos is None:
@@ -278,27 +290,53 @@ class Model:
         x = L.rmsnorm_apply(params["ln_f"], x)
         return x, cache, aux
 
-    def head(self, params, h, ctx: Ctx):
-        """hidden [..., d] -> logits [..., vocab_padded] (tied embeddings)."""
+    def _vocab_group(self, params, ctx: Ctx):
+        """The model group where the rank holds its block of the
+        embedding's vocab rows (the production placement), else None."""
+        if not ctx.placed or params["embed"]["e"].shape[0] == \
+                self.cfg.vocab_padded:
+            return None
+        return ctx.model_group
+
+    def head(self, params, h, ctx: Ctx, gather: bool = True):
+        """hidden [..., d] -> logits [..., vocab_padded] (tied embeddings).
+        Under the production placement each rank computes its block of
+        the vocab, gathered over ``model`` unless ``gather`` is False."""
         cfg = self.cfg
         emb = params["embed"]["e"].to(h.dtype)
+        vg = self._vocab_group(params, ctx)
         dn = (((h.ndim - 1,), (1,)), ((), ()))
         with N.scope("head"):
-            logits = N.dot_general(h, emb, dn, ctx.numerics, op="matmul",
-                                   replicated=True).to(torch.float32)
+            if vg is None:
+                logits = N.dot_general(h, emb, dn, ctx.numerics, op="matmul",
+                                       groups=(ctx.data_group, None))
+            else:
+                logits = N.dot_general(C.copy_sum_grad(h, vg), emb, dn,
+                                       ctx.numerics, op="matmul",
+                                       groups=(ctx.data_group, vg),
+                                       column_parts=C.group_size(vg))
+            logits = logits.to(torch.float32)
         if cfg.logit_softcap:
             logits = cfg.logit_softcap * _X.tanh(logits / cfg.logit_softcap)
         if cfg.vocab_padded > cfg.vocab:  # mask padded vocab slots
-            pad = torch.arange(cfg.vocab_padded, device=h.device) >= cfg.vocab
-            logits = torch.where(pad, torch.tensor(-1e30, device=h.device),
-                                 logits)
+            vocab = torch.arange(emb.shape[0], device=h.device)
+            if vg is not None:
+                vocab = vocab + dist.get_rank(vg) * emb.shape[0]
+            logits = torch.where(vocab >= cfg.vocab,
+                                 torch.tensor(-1e30, device=h.device), logits)
+        if vg is not None and gather:
+            logits = C.gather_replicated(logits, -1, vg)
         return logits
 
     def _chunk_loss(self, params, h_c, y_c, ctx: Ctx):
-        logits = self.head(params, h_c, ctx)                    # [B,tc,Vp]
-        logz = _X.logsumexp(logits, -1)
-        ll = torch.gather(logits, -1, y_c[..., None].to(torch.long))[..., 0]
-        return torch.sum(logz - ll)
+        logits = self.head(params, h_c, ctx, gather=False)      # [B,tc,Vp]
+        vg = self._vocab_group(params, ctx)
+        if vg is None:
+            logz = _X.logsumexp(logits, -1)
+            ll = torch.gather(logits, -1,
+                              y_c[..., None].to(torch.long))[..., 0]
+            return torch.sum(logz - ll)
+        return torch.sum(vocab_parallel_xent(logits, y_c, vg))
 
     def loss(self, params, batch, ctx: Ctx):
         """Mean next-token cross-entropy with T-chunked logits: the head
@@ -341,12 +379,20 @@ class Model:
     # Serving
     # ------------------------------------------------------------------
 
-    def init_cache(self, batch: int, max_len: int, dtype=None):
+    def init_cache(self, batch: int, max_len: int, dtype=None, device=None,
+                   mesh=None):
         """Dense per-slot cache, every leaf stacked ``[L, B, ...]``: KV slabs
         ``{"k","v"}`` of ``[L, B, max_len, KV, hd]`` (dense, hybrid) and the
         SSM ``{"state","conv"}`` (ssm, hybrid).  The SSM conv tail takes
-        ``dtype`` too, bfloat16 for a uint8 cache, as in the reference."""
-        cfg, dev = self.cfg, self.device
+        ``dtype`` too, bfloat16 for a uint8 cache, as in the reference.
+        ``device``: the model's unless given (``"meta"``: shapes only).
+        ``mesh``: the rank's blocks under ``sharding.cache_shardings``, the
+        production placement's cache; a KV cache whose heads and positions
+        both leave ``model`` whole is refused (the placed decode splits
+        positions wherever the KV heads do not divide ``model``)."""
+        from repro_torch.distributed import sharding as SH
+        cfg = self.cfg
+        dev = self.device if device is None else torch.device(device)
         dtype = torch_dtype(dtype or cfg.cache_dtype)
         fdt = torch.bfloat16 if dtype == torch.uint8 else dtype
         c = {}  # one layer's leaves, on the meta device for their shapes
@@ -355,9 +401,22 @@ class Model:
                                             "meta"))
         if cfg.family in ("ssm", "hybrid"):
             c.update(S.ssm_cache_init(cfg, batch, fdt, "meta"))
-        return {k: torch.zeros((cfg.n_layers,) + tuple(a.shape),
-                               dtype=a.dtype, device=dev)
-                for k, a in c.items()}
+        shapes = {k: (cfg.n_layers,) + tuple(a.shape) for k, a in c.items()}
+        if mesh is not None:
+            specs = SH.cache_shardings(mesh, {
+                k: torch.empty(v, device="meta") for k, v in shapes.items()})
+            m = SH.axis_size(mesh, "model")
+            for k in ("k", "v"):
+                if (k in specs and m > 1 and cfg.n_kv_heads % m
+                        and "model" not in specs[k][1]):
+                    raise ValueError(
+                        f"a placed KV cache of {max_len} positions: "
+                        f"{cfg.n_kv_heads} KV heads and the positions leave "
+                        f"model = {m} whole")
+            shapes = {k: SH.local_shape(v, specs[k][1], mesh)
+                      for k, v in shapes.items()}
+        return {k: torch.zeros(v, dtype=c[k].dtype, device=dev)
+                for k, v in shapes.items()}
 
     def init_paged_cache(self, num_pages: int, page_size: int, dtype=None):
         """Shared page pool ``{"k","v"}`` of ``[L, P, page_size, KV, hd]``;
@@ -397,6 +456,27 @@ class Model:
         hidden, cache = self.forward(params, tok[:, None], ctx, cache=cache)
         logits = self.head(params, hidden[:, 0, :], ctx)
         return logits, cache
+
+
+def vocab_parallel_xent(logits, labels, group):
+    """Cross-entropy ``logsumexp(logits) - logits[label]`` per position of
+    logits split by vocab over ``group``: ``logits`` [..., V / n] the
+    rank's block, ``labels`` [...] global ids.  The max, the sum of exp and
+    the label's logit are each summed over the group (the max outside the
+    gradient, 0 where it is not finite, as ``_X.logsumexp``); each rank's
+    gradient is its block's."""
+    v_l = logits.shape[-1]
+    amax = C.all_reduce(logits.detach().amax(-1, keepdim=True), group,
+                        dist.ReduceOp.MAX)
+    amax = torch.where(torch.isfinite(amax), amax, torch.zeros_like(amax))
+    s = C.reduce_sum(_X.exp(logits - amax).sum(-1), group)
+    logz = _X.log(s.abs()) + amax.squeeze(-1)
+    local = labels.to(torch.long) - dist.get_rank(group) * v_l
+    mine = (local >= 0) & (local < v_l)
+    ll = torch.gather(logits, -1, torch.where(
+        mine, local, torch.zeros_like(local))[..., None])[..., 0]
+    ll = C.reduce_sum(torch.where(mine, ll, torch.zeros_like(ll)), group)
+    return logz - ll
 
 
 def params_from_jax(np_params, cfg: ModelConfig, device="cuda",

@@ -34,6 +34,7 @@ from typing import Any
 
 from repro_torch.core import engine as _E
 from repro_torch.core.engine import EulerConfig
+from repro_torch.kernels import logmac as _LM
 
 from .backends import get_backend
 from .policy import PrecisionPolicy
@@ -48,9 +49,10 @@ class NumericsContext:
     from its mesh), or None.  The per-tensor statistics of an operand
     (the pow2 pre-scale, logfxp's max) are then taken over the group, so
     each rank computes with the whole tensor's, as the reference's GSPMD
-    run does; an operand a call names as replicated (a weight) keeps its
-    own, which are the same numbers.  Not part of the configuration's
-    identity: it takes no part in equality or ``to_dict``."""
+    run does; an operand whose group a call names as None (a weight
+    every rank holds whole) keeps its own, which are the same numbers.
+    Not part of the configuration's identity: it takes no part in
+    equality or ``to_dict``."""
 
     policy: PrecisionPolicy = dataclasses.field(
         default_factory=PrecisionPolicy)
@@ -158,18 +160,18 @@ def resolve(op: str = "dot_general", path: str | None = None,
 
 
 def _dispatch(op: str, ctx: NumericsContext | None, path: str | None,
-              replicated: bool = False):
+              groups=None):
     """(backend, cfg, statistics groups) of one op: the groups of its
-    operands a and b (``engine.statistics_groups``), None for b where it
-    is ``replicated`` and for both where the context has no group."""
+    operands a and b (``engine.statistics_groups``): ``groups`` where the
+    call names them, else the context's group for both."""
     nctx = ctx if ctx is not None else current()
     p = path if path is not None else current_path()
     # the resolved (op, path), for wrapping backends (the Backend protocol
     # does not carry them): read with last_dispatch() during the call
     _TLS.last_dispatch = (op, p)
-    g = nctx.group
-    groups = (g, None if replicated else g)
-    return get_backend(nctx.backend), nctx.cfg_for(p, op), groups
+    if groups is None:
+        groups = (nctx.group, nctx.group)
+    return get_backend(nctx.backend), nctx.cfg_for(p, op), tuple(groups)
 
 
 def last_dispatch() -> tuple[str, str]:
@@ -210,24 +212,34 @@ def reset_guard_stats():
     _G.reset()
 
 
-def _under(groups, fn, *args):
+def _under(groups, fn, *args, column_parts: int = 1):
     """``fn(*args)`` with the operands' statistics groups set (where
-    either is a group)."""
-    if groups == (None, None):
-        return fn(*args)
-    with _E.statistics_groups(*groups):
+    either is a group), and inside ``logmac.column_block(column_parts)``
+    where the product is a block of its columns."""
+    with contextlib.ExitStack() as stack:
+        if groups != (None, None):
+            stack.enter_context(_E.statistics_groups(*groups))
+        if column_parts > 1:
+            stack.enter_context(_LM.column_block(column_parts))
         return fn(*args)
 
 
 def dot_general(a, b, dimension_numbers, ctx: NumericsContext | None = None,
                 *, op: str = "dot_general", path: str | None = None,
-                replicated: bool = False):
+                groups=None, column_parts: int = 1):
     """``lax.dot_general`` (JAX dimension numbers) under the active
     policy/backend; ``op`` tags the call for policy resolution.
-    ``replicated``: ``b`` is a weight every rank holds whole, which keeps
-    its own statistics under a context's group."""
-    backend, cfg, groups = _dispatch(op, ctx, path, replicated)
-    return _under(groups, backend.dot_general, a, b, dimension_numbers, cfg)
+    ``groups``: the process groups (a's, b's) over which each operand is
+    split, where the call knows them (a weight every rank holds whole:
+    None; a weight split over ``model``: the model group; an activation
+    split over data and model: their joint group), in place of the
+    context's group for both; each operand's statistics are then the
+    whole tensor's.  ``column_parts``: the product is a block of ``1 /
+    column_parts`` of its output columns (a column-parallel weight), and
+    its sums run in the whole product's order."""
+    backend, cfg, groups = _dispatch(op, ctx, path, groups)
+    return _under(groups, backend.dot_general, a, b, dimension_numbers, cfg,
+                  column_parts=column_parts)
 
 
 def matmul(a, b, ctx: NumericsContext | None = None, *,

@@ -32,19 +32,39 @@ def cosine_schedule(base_lr: float, warmup: int, total: int,
     return lr
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, groups=None) -> torch.Tensor:
+    """The L2 norm of all the tree's leaves together.  ``groups``: per
+    leaf (in leaf order) the process group its block is split over, or
+    None for a leaf every rank holds whole; each group's leaves' squares
+    are then summed over it, so each element counts once, and every rank
+    gets the norm of the whole tree."""
     sq = [torch.sum(torch.square(x.to(torch.float32))) for x in T.leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sq)))
+    if groups is None:
+        return torch.sqrt(torch.sum(torch.stack(sq)))
+    from repro_torch.distributed.collectives import all_reduce
+    parts = []
+    for g in dict.fromkeys(groups):     # each group once, in first-use order
+        part = torch.sum(torch.stack([q for q, gq in zip(sq, groups,
+                                                          strict=True)
+                                      if gq is g]))
+        parts.append(all_reduce(part, g))
+    return torch.sqrt(torch.sum(torch.stack(parts)))
+
+
+def _clip(tree, max_norm: float, norm):
+    """``tree`` scaled so that its global norm ``norm`` is at most
+    ``max_norm``."""
+    # a true division: torch's ``float / tensor`` multiplies by a reciprocal
+    scale = torch.clamp(torch.full_like(norm, max_norm)
+                        / torch.clamp(norm, min=1e-9), max=1.0)
+    return T.map(lambda x: (x * scale).to(x.dtype), tree)
 
 
 def clip_by_global_norm(tree, max_norm: float):
     """(``tree`` scaled so its global norm is at most ``max_norm``, the
     norm before clipping)."""
     norm = global_norm(tree)
-    # a true division: torch's ``float / tensor`` multiplies by a reciprocal
-    scale = torch.clamp(torch.full_like(norm, max_norm)
-                        / torch.clamp(norm, min=1e-9), max=1.0)
-    return T.map(lambda x: (x * scale).to(x.dtype), tree), norm
+    return _clip(tree, max_norm, norm), norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,12 +88,14 @@ class AdamW:
         return {"m": T.map(zeros, params), "v": T.map(zeros, params),
                 "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
-    def update(self, grads, state, params):
-        """Returns (new_params, new_state, metrics)."""
+    def update(self, grads, state, params, norm_groups=None):
+        """Returns (new_params, new_state, metrics).  ``norm_groups``: the
+        leaves' groups for the global norm (:func:`global_norm`), where
+        each rank holds blocks of them (ZeRO-1, tensor parallelism)."""
         count = state["count"] + 1
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, norm_groups)
         if self.max_grad_norm is not None:
-            grads, _ = clip_by_global_norm(grads, self.max_grad_norm)
+            grads = _clip(grads, self.max_grad_norm, gnorm)
         lr = (self.lr(count) if callable(self.lr)
               else torch.tensor(self.lr, dtype=torch.float32,
                                 device=count.device))

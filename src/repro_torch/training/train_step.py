@@ -26,6 +26,10 @@ hold its experts' rows only, and are summed over the model group too.
 Up to the order of f32 sums, the step is the one-process step on the
 concatenated batch; with ``grad_accum`` each rank splits its own rows, so
 micro-batch i is every rank's i-th block.
+
+Under the production placement (``Ctx(placement="production")``) a rank
+holds its blocks of the parameters and its ZeRO-1 slices of the moments
+(:func:`init_placed_state`) and :class:`Zero1` takes the optimizer step.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as T
 from repro_torch.distributed import checkpoint as CK
@@ -112,7 +117,13 @@ def _is_expert_stack(path, leaf) -> bool:
 
 def sync_grads(grads, ctx: Ctx, bucket_bytes: int = 64 << 20):
     """Each rank's gradient summed over the data group; expert stacks
-    also over the model group (a model rank's hold its experts' rows)."""
+    also over the model group (a model rank's hold its experts' rows).
+    Not under the production placement, where a leaf split over
+    ``model`` holds the rank's block and :class:`Zero1` sums over the data
+    axes alone."""
+    if ctx.placed:
+        raise ValueError("the production placement sums gradients in "
+                         "Zero1.reduce")
     grads = collectives.all_reduce_tree(grads, ctx.data_group, bucket_bytes)
     mg = ctx.model_group
     if mg is None:
@@ -120,6 +131,156 @@ def sync_grads(grads, ctx: Ctx, bucket_bytes: int = 64 << 20):
     return T.map_with_path(
         lambda path, g: (collectives.all_reduce(g.clone(), mg)
                          if _is_expert_stack(path, g) else g), grads)
+
+
+class _Shape:
+    """A leaf's shape alone, for the sharding rules."""
+
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+
+
+def _zero_dim(pspec, ospec) -> int | None:
+    """The dim the optimizer spec adds ``data`` on, or None."""
+    ps = tuple(pspec) + (None,) * (len(ospec) - len(pspec))
+    return next((i for i, (a, b) in enumerate(zip(tuple(ospec), ps))
+                 if a == "data" and b is None), None)
+
+
+class Zero1:
+    """The production placement's optimizer step on one rank (ZeRO-1):
+    each leaf's gradient is summed over the data axes its parameter spec
+    does not split (``sharding.param_spec``), and the moments live where
+    the reference's ``opt_shardings`` put them on its stacked ``[L, ...]``
+    tree.  Where that adds ``data`` on a dim of the leaf, the sum is a
+    reduce-scatter along it (after an all-reduce over ``pod``), the rank
+    updates its slice of the parameter with its slice of the moments, and
+    the slices are all-gathered over ``data``, the shape GSPMD gives.
+    Where it adds ``data`` on the stacked layer dim, each data rank owns
+    the moments of its block of L / data layers whole: the owner updates
+    the layer's leaf and broadcasts it over ``data``, the others hold
+    empty moments.  The clip's global norm sums each slice's squares over
+    the axes it is split over and counts a leaf every rank holds whole
+    once.  Specs come from the model's global shapes
+    (``Model.init_shapes``)."""
+
+    def __init__(self, model, mesh, fsdp_experts: bool = False):
+        shapes = model.init_shapes()
+        pspecs = SH.shardings_in_order(shapes, SH.params_pspecs(
+            shapes, mesh, fsdp_experts=fsdp_experts))
+        self.mesh = mesh
+        self.data = mesh.group("data")
+        dsz = SH.axis_size(mesh, "data")
+        n_layers = len(shapes["layers"])
+        self.plans = []
+        for (path, leaf), ps in zip(T.leaves_with_path(shapes), pspecs):
+            shape = tuple(leaf.shape)
+            owner = zero = None
+            if len(path) > 1 and path[0] == "layers":
+                # the reference's stacked leaf and its moments' spec
+                spath = (path[0],) + path[2:]
+                sshape = (n_layers,) + shape
+                sps = SH.param_spec(spath, _Shape(sshape), mesh,
+                                    fsdp_experts=fsdp_experts)
+                zdim = _zero_dim(sps, SH.opt_spec(sps, sshape, mesh))
+                if zdim == 0:
+                    owner = path[1] // (n_layers // dsz)
+                elif zdim is not None:
+                    zero = zdim - 1
+            else:
+                zero = _zero_dim(ps, SH.opt_spec(ps, shape, mesh))
+            used = {a for ax in ps if ax is not None
+                    for a in (ax if isinstance(ax, tuple) else (ax,))}
+            sum_axes = tuple(a for a in ("pod", "data")
+                             if a in mesh.axis_names and a not in used)
+            split = used | ({"data"} if zero is not None or owner is not None
+                            else set())
+            self.plans.append((zero, owner, sum_axes, mesh.group(tuple(
+                a for a in mesh.axis_names if a in split))))
+        self.norm_groups = [g for *_, g in self.plans]
+
+    def _mine(self, owner) -> bool:
+        return (self.data is None
+                or dist.get_rank(self.data) == owner)
+
+    def opt_shapes(self, params) -> list:
+        """The rank's moment shapes, leaf by leaf: its parameter blocks'
+        shapes with the ZeRO dim cut over ``data``, or empty for a layer
+        another data rank owns."""
+        n = SH.axis_size(self.mesh, "data")
+        idx = self.mesh.coord.get("data", 0)
+        out = []
+        for p, (zero, owner, _, _) in zip(T.leaves(params), self.plans):
+            shape = list(p.shape)
+            if zero is not None:
+                shape[zero] //= n
+            if owner is not None and owner != idx:
+                shape[0] = 0
+            out.append(tuple(shape))
+        return out
+
+    def init(self, optimizer: AdamW, params):
+        """Zero moments of the rank's ZeRO-1 slices."""
+        slices = T.unflatten(params, [
+            torch.empty(s, dtype=p.dtype, device=p.device)
+            for p, s in zip(T.leaves(params), self.opt_shapes(params))])
+        return optimizer.init(slices)
+
+    def reduce(self, grads):
+        """Each leaf's gradient summed over the data axes, as the rank's
+        ZeRO-1 slice where the leaf has one."""
+        out = []
+        for g, (zero, owner, sum_axes, _) in zip(T.leaves(grads),
+                                                 self.plans):
+            if zero is not None:
+                if "pod" in sum_axes:
+                    g = collectives.all_reduce(g.clone(),
+                                               self.mesh.group("pod"))
+                g = collectives.reduce_scatter_dim(g, zero, self.data)
+            elif sum_axes:
+                g = collectives.all_reduce(g.clone(),
+                                           self.mesh.group(sum_axes))
+            if owner is not None and not self._mine(owner):
+                g = g[:0]
+            out.append(g)
+        return T.unflatten(grads, out)
+
+    def slices(self, params):
+        out = []
+        for p, (zero, owner, _, _) in zip(T.leaves(params), self.plans):
+            if zero is not None:
+                p = collectives.block_of(p, zero, self.data).contiguous()
+            elif owner is not None and not self._mine(owner):
+                p = p[:0]
+            out.append(p)
+        return T.unflatten(params, out)
+
+    def gather(self, params, like):
+        """The updated slices made whole again: all-gathered along the
+        ZeRO dim, or broadcast from a layer's owner (into ``like``'s
+        leaf shapes)."""
+        out = []
+        for p, old, (zero, owner, _, _) in zip(T.leaves(params),
+                                               T.leaves(like), self.plans):
+            if zero is not None:
+                p = collectives.all_gather_dim(p, zero, self.data)
+            elif owner is not None and self.data is not None:
+                buf = p if self._mine(owner) else torch.empty_like(old)
+                p = collectives.broadcast(buf.contiguous(), owner, self.data)
+            out.append(p)
+        return T.unflatten(params, out)
+
+
+def init_placed_state(model, optimizer: AdamW, mesh, params, *,
+                      fsdp_experts: bool = False) -> TrainState:
+    """A rank's train state under the production placement: ``params``
+    its parameter blocks (``sharding.place``), the moments its ZeRO-1
+    slices of them, step 0."""
+    params = _trainable(params)
+    opt = Zero1(model, mesh, fsdp_experts).init(optimizer, params)
+    step = torch.zeros((), dtype=torch.int32,
+                       device=T.leaves(params)[0].device)
+    return TrainState(params=params, opt=opt, step=step)
 
 
 def save_state(ckpt_dir: str, step: int, state: TrainState) -> str:
@@ -163,7 +324,13 @@ def make_train_step(model, optimizer: AdamW, ctx: Ctx, *,
     micro-batches run one after another; their gradients and losses are
     summed, then divided by ``grad_accum``.  ``compress_grads`` applies
     int8 + error-feedback compression to the accumulated gradient (the
-    numerics of the compressed all-reduce's wire format)."""
+    numerics of the compressed all-reduce's wire format).  Under the
+    production placement (``ctx.placement``) the state is the rank's
+    (:func:`init_placed_state`) and the optimizer step is :class:`Zero1`'s."""
+    zero = Zero1(model, ctx.mesh, ctx.moe_fsdp) if ctx.placed else None
+    if zero is not None and compress_grads:
+        raise NotImplementedError("gradient compression under the "
+                                  "production placement")
 
     def grad_fn(params, mb):
         """(loss, grads); a parameter the loss does not reach gets zeros,
@@ -193,9 +360,18 @@ def make_train_step(model, optimizer: AdamW, ctx: Ctx, *,
             grads = T.map(lambda g: g / grad_accum, grads)
             loss = loss / grad_accum
 
+        ef = state.ef
+        if zero is not None:
+            with torch.no_grad():
+                slices, opt, opt_metrics = optimizer.update(
+                    zero.reduce(grads), state.opt,
+                    zero.slices(state.params), zero.norm_groups)
+                params = zero.gather(slices, state.params)
+            new_state = TrainState(params=_trainable(params), opt=opt,
+                                   step=state.step + 1, ef=ef)
+            return new_state, {"loss": loss, **opt_metrics}
         if ctx.mesh is not None:
             grads = sync_grads(grads, ctx)
-        ef = state.ef
         if compress_grads:
             grads, ef = collectives.ef_compress(grads, ef, compress_block)
 

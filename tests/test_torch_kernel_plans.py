@@ -157,6 +157,40 @@ def test_tensor_core_split_ignores_the_row_count(kn, kw):
             want.kind, want.splits, want.ks, want.pieces), M
 
 
+@pytest.mark.parametrize("parts", [2, 16])
+@pytest.mark.parametrize("kw", TC_KINDS + [{}], ids=str)
+@pytest.mark.parametrize("M", [4, 32, 64, 512])
+def test_column_block_runs_the_whole_products_split(M, kw, parts):
+    """A block of N / parts columns planned for N (``column_block``, a
+    column-parallel rank's projection) runs the whole [K, N] product's
+    kernel and K-split, so each of its columns sums K in that order."""
+    for K, N in GEMMA_KN + list(PARENT_MMA_SPLITS):
+        if N % parts:
+            continue
+        whole = TLM._plan(M, N, K, **kw)
+        block = TLM._plan(M, N // parts, K, split_n=N, **kw)
+        assert (block.kind, block.splits, block.ks) == (
+            whole.kind, whole.splits, whole.ks), (K, N)
+
+
+def test_column_parts_reach_the_logmac_plan(monkeypatch):
+    """``numerics.dot_general(column_parts=m)`` runs its product inside
+    ``logmac.column_block(m)``, and only then."""
+    from repro_torch import numerics as N
+    seen, block = [], TLM.column_block
+
+    def spy(parts):
+        seen.append(parts)
+        return block(parts)
+    monkeypatch.setattr(TLM, "column_block", spy)
+    a, b = torch.ones(2, 8), torch.ones(8, 4)
+    dn = (((1,), (0,)), ((), ()))
+    ctx = N.NumericsContext.from_ecfg(from_variant(16, "L-21b"), "cuda")
+    want = N.dot_general(a, b, dn, ctx)
+    got = N.dot_general(a, b, dn, ctx, column_parts=2)
+    assert seen == [2] and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("M", [33, 64, 65, 100, 128])
 def test_mma_plan_up_to_128_rows_is_the_parents(M):
     """At 32 < M <= 128 the fp16 kernel's plan is the one it had before the
@@ -286,12 +320,8 @@ def _page_parallel(qpat, k_pages, v_pages, table, pos, window, scl, *, pc,
         kw = k_pages[table[:, j].long()].permute(0, 2, 1, 3)
         kv_, kr = decode_planes_raw(kw, pc, cfg_qk.stages, cfg_qk.trunc,
                                     cfg_qk.sublane)
-        s = qv @ kv_.transpose(-1, -2)
-        if subtracts_rem(cfg_qk):
-            s = s - qr @ kr.transpose(-1, -2)
-        s = s * scl
-        if softcap:
-            s = softcap * torch.tanh(s / softcap)
+        s = TPD.page_scores(qv, qr, kv_, kr, scl, subtracts_rem(cfg_qk),
+                            softcap)
         spos = torch.arange(ps) + j * ps
         ok = spos <= pos_b
         if w >= 0:
@@ -620,3 +650,36 @@ def test_redesigned_kernels_match_plain_versions_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     check_redesigned_kernels_on_card(torch.device("cuda"))
+
+
+def test_page_scores_follow_the_kernels_summation_order():
+    """``paged_decode.lane_dot`` sums as ``pd_scores_kernel`` does: lane
+    ``l`` chains ``fmaf`` over ``d = l, l + 32, ...`` from 0, then lane 0
+    adds the lanes by the xor butterfly.  Held bit for bit against that
+    order written out with numpy (float64 product and sum, one rounding
+    to float32 per step) at hd = 72 (lanes with two and three terms),
+    and within 1e-5 of the float64 product."""
+    import numpy as np
+    g = torch.Generator().manual_seed(11)
+    a = torch.randn((2, 3, 72), generator=g)
+    b = torch.randn((2, 5, 72), generator=g) * 8
+    got = TPD.lane_dot(a, b)
+    an, bn = a.numpy(), b.numpy()
+    want = np.empty(got.shape, dtype=np.float32)
+    for i in range(2):
+        for gi in range(3):
+            for s in range(5):
+                lanes = np.zeros(32, dtype=np.float32)
+                for d in range(72):
+                    lanes[d % 32] = np.float32(
+                        np.float64(an[i, gi, d]) * np.float64(bn[i, s, d])
+                        + np.float64(lanes[d % 32]))
+                h = 16
+                while h:
+                    lanes[:h] = lanes[:h] + lanes[h:2 * h]
+                    h //= 2
+                want[i, gi, s] = lanes[0]
+    assert np.array_equal(got.numpy(), want)
+    exact = torch.einsum("igd,isd->igs", a.double(), b.double())
+    assert float((got.double() - exact).abs().max()) <= \
+        1e-5 * float(exact.abs().max())

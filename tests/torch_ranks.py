@@ -288,3 +288,178 @@ def launcher_rank(rank, world, argv):
     mesh = make_mesh((world,), ("data",), device="cpu")
     rep = train._train(args, mesh)
     return {"losses": rep["losses"], "grad_norms": rep["grad_norms"]}
+
+
+# --------------------------------------------------------------------------
+# the production placement (test_torch_placement.py)
+# --------------------------------------------------------------------------
+
+def smoke_model(arch: str, exact: bool = False):
+    """The SMOKE model of ``arch`` on the CPU under P16 L-21b (or the
+    exact engine), no remat."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import EulerConfig, from_variant
+    from repro_torch.models.transformer import Model
+    ecfg = EulerConfig(mode="exact") if exact else from_variant(16, "L-21b")
+    return Model(get_config(arch).SMOKE, ecfg, remat=False, device="cpu")
+
+
+def _forward_loss_step(model, params, batch, ctx, step_state):
+    """The forward's pre-scales and logits, the loss and its gradients
+    (leaf order) and one AdamW step from ``step_state``."""
+    from repro_torch import tree as T
+    from repro_torch.optim import AdamW
+    from repro_torch.training import make_train_step
+    with torch.no_grad():
+        scales = record_scales(lambda: model.loss(params, batch, ctx))
+        h, _ = model.forward(params, batch["inputs"], ctx)
+        logits = model.head(params, h, ctx)
+    loss, _ = model.loss(params, batch, ctx)
+    grads = list(torch.autograd.grad(loss, T.leaves(params)))
+    new, metrics = make_train_step(model, AdamW(lr=1e-3), ctx)(
+        step_state(params), batch)
+    return {"scales": scales, "logits": logits, "loss": loss.detach(),
+            "grads": grads, "step_loss": metrics["loss"],
+            "step_params": [t.detach() for t in T.leaves(new.params)],
+            "moments": [tuple(t.shape) for t in T.leaves(new.opt["m"])]}
+
+
+def placed_rank(rank, world, shape, cases):
+    """Per case (arch, exact engine, whole parameters as numpy, global
+    batch): on a (data, model) = ``shape`` mesh under the production
+    placement, the forward's pre-scales, this rank's rows of the logits,
+    the loss, the gradients (the rank's blocks, summed over the data
+    axes) and one ZeRO-1 AdamW step's loss and parameter blocks.  For a
+    MoE model on more than one data rank also the same on the mesh
+    without the placement (each rank holding the whole tree, gradients
+    summed by ``sync_grads``; the expert block's capacity is a data
+    rank's, so one process is not the reference there)."""
+    from repro_torch import tree as T
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import Ctx
+    from repro_torch.optim import AdamW
+    from repro_torch.training import (TrainState, init_placed_state,
+                                      rank_rows, sync_grads)
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    opt = AdamW(lr=1e-3)
+    out = {}
+    for name, (arch, exact, p_np, batch_np) in cases.items():
+        model = smoke_model(arch, exact)
+        ctx = Ctx(numerics=model.numerics, mesh=mesh, placement="production")
+        whole = torch_tree(p_np)
+        params = SH.place(whole, SH.params_pspecs(whole, mesh), mesh)
+        params = T.map(lambda t: t.requires_grad_(True), params)
+        batch = rank_rows({k: torch.from_numpy(v)
+                           for k, v in batch_np.items()}, ctx)
+        out[name] = _forward_loss_step(
+            model, params, batch, ctx,
+            lambda p: init_placed_state(model, opt, mesh, p))
+        grads = [C.all_reduce(g.clone(), ctx.data_group)
+                 for g in out[name]["grads"]]
+        out[name]["grads"] = grads
+        # the whole-tree AdamW step on the same gradients, cut to the
+        # rank's blocks: what ZeRO-1 must give up to f32 order
+        specs = SH.shardings_in_order(whole, SH.params_pspecs(whole, mesh))
+        full = []
+        for g, spec in zip(grads, specs):
+            for dim, ax in enumerate(spec):
+                if ax == "model":
+                    g = C.all_gather_dim(g, dim, ctx.model_group)
+            full.append(g)
+        with torch.no_grad():
+            stepped, _, _ = opt.update(T.unflatten(whole, full),
+                                       opt.init(whole), whole)
+        out[name]["replicated_step"] = T.leaves(SH.place(
+            stepped, SH.params_pspecs(whole, mesh), mesh))
+        if model.cfg.family == "moe" and shape[0] > 1:
+            ctx_u = Ctx(numerics=model.numerics, mesh=mesh)
+            whole = T.map(lambda t: t.requires_grad_(True), whole)
+            u = _forward_loss_step(model, whole, batch, ctx_u, lambda p: (
+                TrainState(params=p, opt=opt.init(p),
+                           step=torch.zeros((), dtype=torch.int32))))
+            u["grads"] = T.leaves(sync_grads(
+                T.unflatten(whole, u["grads"]), ctx_u))
+            out[name + "/unplaced"] = u
+    return out
+
+
+def placement_units_rank(rank, world, shape, xent, decode, norm):
+    """The pieces of the placement on a (data, model) = ``shape`` mesh:
+    the vocab-parallel cross-entropy of this rank's vocab block
+    (``xent``: logits [n, V], labels [n]) and its gradient; the
+    sequence-sharded decode attention of this rank's block of positions
+    (``decode``: scores [B, KV, 1, g, S], values [B, S, KV, hd]); the
+    global norm of a mixed tree (``norm``: whole leaves, each cut by its
+    spec) with the leaves' groups."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import Ctx, seq_sharded_attend
+    from repro_torch.models.transformer import vocab_parallel_xent
+    from repro_torch.optim import global_norm
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    ctx = Ctx(mesh=mesh, placement="production")
+    mg = ctx.model_group
+    logits, labels = (torch.from_numpy(a) for a in xent)
+    part = SH.local_shard(logits, SH.P(None, "model"), mesh)
+    part.requires_grad_(True)
+    loss = vocab_parallel_xent(part, labels, mg)
+    (g,) = torch.autograd.grad(loss.sum(), part)
+    scores, values = (torch.from_numpy(a) for a in decode)
+    s_blk = SH.local_shard(scores, SH.P(None, None, None, None, "model"),
+                           mesh)
+    v_blk = SH.local_shard(values, SH.P(None, "model"), mesh)
+    attended = seq_sharded_attend(s_blk, v_blk, ctx)
+    leaves, specs = norm
+    blocks = [SH.local_shard(torch.from_numpy(a), spec, mesh)
+              for a, spec in zip(leaves, specs)]
+    groups = [mesh.group(tuple(a for s in spec if s is not None
+                               for a in (s if isinstance(s, tuple) else (s,))))
+              for spec in specs]
+    return {"xent": loss.detach(), "xent_grad": g, "attended": attended,
+            "norm": global_norm(blocks, groups),
+            "bytes": C.group_size(mg)}
+
+
+def placed_serve_rank(rank, world, shape, cases):
+    """Per case (arch, config fields to replace, whole parameters, ids
+    [B, T0 + steps]): under the production placement on a (data, model)
+    = ``shape`` mesh, on the exact engine, this rank's rows of the
+    prefill's logits over the first T0 tokens and of each teacher-forced
+    decode step's, on a dense cache of ``T0 + steps`` placed by
+    ``cache_shardings`` (sequence-sharded where the KV heads do not
+    divide ``model``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import EulerConfig
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.transformer import Model
+    from repro_torch.training import rank_rows
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    out = {}
+    for name, (arch, kw, p_np, ids_np, t0) in cases.items():
+        cfg = dataclasses.replace(get_config(arch).SMOKE, **kw)
+        model = Model(cfg, EulerConfig(mode="exact"), remat=False,
+                      device="cpu")
+        S = ids_np.shape[1]
+        ctx = Ctx(numerics=model.numerics, mesh=mesh,
+                  placement="production")
+        whole = torch_tree(p_np)
+        params = SH.place(whole, SH.params_pspecs(whole, mesh), mesh)
+        ids = rank_rows({"ids": torch.from_numpy(ids_np)}, ctx)["ids"]
+        cache = model.init_cache(ids_np.shape[0], S, mesh=mesh)
+        with torch.no_grad():
+            logits, cache = model.prefill(params, ids[:, :t0], ctx, cache)
+            steps = [logits]
+            for i in range(t0, S - 1):
+                logits, cache = model.decode_step(params, ids[:, i], i,
+                                                  cache, ctx)
+                steps.append(logits)
+        out[name] = {"logits": torch.stack(steps, 1),
+                     "cache_shapes": {k: tuple(v.shape)
+                                      for k, v in cache.items()}}
+    return out
