@@ -4,7 +4,7 @@
 
 Phases (each asserts; a failed phase exits non-zero and prints no result):
 
-1. the card's name and power limit; build of the five CUDA sources from
+1. the card's name and power limit; build of the six CUDA sources from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the main path: posit encode (bit-exact, six formats with
@@ -20,7 +20,14 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    the served format only; two launches bit-identical), posit decode
    (bit-identical f32 on
    six formats: every 8- and 16-bit pattern plus 2^24 random 32-bit
-   words), the served P16 format's decode table bit for bit against the
+   words), the core codec's three entries (``posit_store``,
+   ``posit_load``, ``posit_quantize``; ``check_core_codec``) bit for bit
+   against their plain versions, NaN as NaN, on six formats: every 8- and
+   16-bit word and 2^24 random 32-bit words loaded to f32 and bf16, f32
+   and bf16 stores and quantizes (with the pow2 scale and without) of edge
+   values (subnormals -> +-minpos), the five gemma2-2b weight shapes (the
+   head at the served P16 and P8), a ragged size, a misaligned base, a
+   transposed weight and a strided slice, the served P16 format's decode table bit for bit against the
    plain decode, logmac over every 8- and 16-bit pattern (and 2^20
    32-bit words) as B with K = 1 and M in {1, 4, 33, 64}, equal to the
    plain version (the bf16-piece kernel, P32 above 32 rows, within
@@ -60,15 +67,19 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    operand), then serving gemma2-2b FULL (26 layers, d_model 2304, seeded
    random weights) through ``repro_torch.launch.serve`` with a paged
    uint16 posit KV cache on the ``cuda`` backend: 8 requests, batch 4,
-   max_len 256, max_new 16; the fused encode (at width 16), logmac and
-   paged flash-decode must launch; then the SMOKE model's logits on the
+   max_len 256, max_new 16; the fused encode (at width 16), logmac,
+   paged flash-decode and ``posit_store`` (the KV writes) must launch; then the SMOKE model's logits on the
    kernels against the reference engine;
 3b. guarded, laddered serving of gemma2-2b FULL through the same launcher
    (``--guard --degrade-ladder 8``, P16 -> P8): every request ``ok``,
    demotions and mixed-level steps, the fused encode and logmac launched
    at widths 8 and 16, paged flash-decode not launched (the guarded path
-   attends through the gather reference, as the JAX package does), guard
-   checks with zero violations;
+   attends through the gather reference, as the JAX package does),
+   ``posit_store``, ``posit_load`` (the gather reference's reads) and
+   ``posit_quantize`` (the guard's check) launched and their counts
+   printed, guard checks with zero violations; then a 16-token prefill
+   on ``cuda`` and ``guarded:cuda`` in turns (the guard's share, each
+   pass's launches);
 3c. the fault-injection campaign ``repro_torch.launch.faultcamp --smoke
    --guard`` (the TINY model in posit mode: no kernel) with its asserts;
 3d. the ``ops.encode`` -> ``ops.decode`` codec path on an MLP weight;
@@ -78,8 +89,8 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    then a ``ServeSupervisor`` over a ``DurableBatcher`` (a snapshot every
    2 decode steps) killed at step 5 and restarted on a fresh engine;
    every request's tokens equal the uninterrupted run's, one restart
-   ruled ELASTIC_DOWN, the fused encode, logmac and paged flash-decode
-   launched before and after the restart, every slot's pages equal to
+   ruled ELASTIC_DOWN, the fused encode, logmac, paged flash-decode and
+   ``posit_store`` launched before and after the restart, every slot's pages equal to
    the uninterrupted engine's; each snapshot's seconds and bytes; then
    the same 8 prompts with staggered budgets, killed two steps before
    the end (a snapshot every step), so the resumed steps carry retired
@@ -212,7 +223,14 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    of the mamba2-1.3b and hymba-1.5b paths, and logmac's tensor-core
    kernel and the activations' fused encode at hymba's eval shapes
    (M = 256); the fused encode and logmac (M = 4 and 32) at the shapes of
-   3h-3j, and paged decode at their geometries.
+   3h-3j, and paged decode at their geometries; the core codec's entries:
+   ``posit_quantize`` (the guard's check, with s) at the five gemma2-2b
+   weight shapes (the head transposed, read in place) and a decode
+   activation, ``posit_store`` of a decode step's K/V row (and of
+   [2304, 9216], and of a strided slice, copied first), ``posit_load`` of
+   one layer's gathered K or V to bf16 (and [2304, 9216] to f32); then the
+   aten ops a call of ``cache_encode``, ``cache_decode`` and the quantize
+   dispatches on the card, kernel route against plain.
 
 Launch counts are reset just before each path (3, 3b, 3c, 3d, the four
 drains of 3e, each model of 3f, the eval step of 3g, the drains of 3h and
@@ -1632,6 +1650,160 @@ def phase_multi_device(card: str, path_launches) -> dict:
     return path_launches("multi-device b (both ranks)")
 
 
+# ---- the core codec's entries (csrc/posit_core_codec.cu) ----------------
+CORE_ENTRIES = ("posit_store", "posit_load", "posit_quantize")
+# f32 edge values: zeros, NaN, Inf, subnormals (the core codec: +-minpos),
+# the f32 extremes, and each format's clamp edges (2^+-e, one step out)
+CORE_EDGES = ([0.0, -0.0, float("nan"), float("inf"), -float("inf"), 1e-40,
+               -1e-40, 1.4e-45, -1.4e-45, 1.1754942e-38, 2.0 ** -126,
+               -2.0 ** -126, 3e38, -3e38, 3.4028235e38, 1e-30, -1e-30, 1e30,
+               1.0, -1.0, 0.5]
+              + [v for e in (6, 12, 20, 28, 56, 120)
+                 for v in (2.0 ** e, 2.0 ** (e + 1), 2.0 ** -e,
+                           2.0 ** -(e + 1), -1.5 * 2.0 ** -(e + 1))])
+CORE_CHUNK = 1 << 24   # the plain versions run a chunk at a time
+# the JAX core codec function each entry computes (no pallas_call)
+CORE_REPLACES = {"posit_store": "195 encode_from_float",
+                 "posit_load": "170 decode_to_float",
+                 "posit_quantize": "265 quantize"}
+
+
+def core_compare(name: str, got, want, errs: dict, what: str) -> None:
+    """Assert ``got`` bit-equal to ``want`` (NaN equal to any NaN); the
+    largest |got - want| (words: as unsigned patterns) goes to errs."""
+    import torch
+    assert got.shape == want.shape and got.dtype == want.dtype, (
+        name, what, got.shape, want.shape, got.dtype, want.dtype)
+    if got.dtype.is_floating_point:
+        ib = torch.int16 if got.element_size() == 2 else torch.int32
+        same = (got.view(ib) == want.view(ib)) | (
+            torch.isnan(got) & torch.isnan(want))
+        diff = torch.where(same, 0.0, (got.float() - want.float()).abs())
+    else:
+        m = (1 << (8 * got.element_size())) - 1
+        same = got == want
+        diff = ((got.long() & m) - (want.long() & m)).abs().float()
+    bad = int((~same).sum())
+    if diff.numel():
+        errs[name] = max(errs[name], float(diff.max()))
+    assert bad == 0, f"{name} {what}: {bad} of {got.numel()} values differ"
+
+
+def core_check(name, kernel, plain, x, errs, what) -> None:
+    """The kernel on the whole of x against the plain version a chunk of
+    the flattened x at a time (the plain int64 codec of a head's 590 M
+    values does not fit whole)."""
+    got = kernel(x).reshape(-1)
+    flat = x.reshape(-1)
+    for c0 in range(0, flat.numel(), CORE_CHUNK):
+        core_compare(name, got[c0:c0 + CORE_CHUNK],
+                     plain(flat[c0:c0 + CORE_CHUNK]), errs, what)
+
+
+def check_core_codec(dev, errs: dict) -> None:
+    """Phase 2's checks of the core codec's entries, bit for bit against
+    their plain versions (NaN as NaN), on a generator of their own (the
+    later checks draw as before): every 8/16-bit pattern and 2^24 random
+    32-bit words loaded to f32 and bf16; f32 and bf16 stores and
+    quantizes, with the pow2 scale and without, of the edge values, the
+    five gemma2-2b weight shapes at the model init's scale (the head, the
+    transposed embedding the guard checks, at the served P16 and the
+    ladder's P8 only), a ragged size, a misaligned base, a transposed
+    weight (read in place) and a strided slice (copied first)."""
+    import torch
+    from repro_torch.core import posit as P
+    from repro_torch.core.engine import _pow2_scale, from_variant
+    from repro_torch.kernels import posit_codec as PC
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    formats = (P.POSIT8, P.BPOSIT8, P.POSIT16, P.BPOSIT16, P.POSIT32,
+               P.BPOSIT32)
+    served = (from_variant(16, "L-21b").posit, from_variant(8, "L-21b").posit)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    # loads: every 8/16-bit word, 2^24 random 32-bit ones, 0 and NaR, and
+    # a strided view
+    r32 = torch.randint(-(1 << 31), (1 << 31) - 1, (1 << 24,), generator=gen,
+                        dtype=torch.int32, device=dev)
+    n_load = 0
+    for pc in formats:
+        N = pc.n_bits
+        w = (torch.arange(1 << N, device=dev) if N <= 16 else torch.cat([
+            r32.long(), torch.tensor([0, 1 << 31], device=dev)]))
+        words = P.to_storage(w, pc)
+        for dt in (torch.float32, torch.bfloat16):
+            for what, wi in (("words", words), ("strided", words[1::3])):
+                core_check("posit_load",
+                           lambda t: PC.posit_load(t, pc, dt),
+                           lambda t: PC.load_plain(t, pc, dt), wi, errs,
+                           f"{pc.name} {what} -> {dt}")
+                n_load += wi.numel()
+    del r32, w, words
+
+    edge = randn(1 << 20) * torch.exp2(torch.randint(
+        -40, 40, (1 << 20,), generator=gen, device=dev).float())
+    edge[:len(CORE_EDGES)] = torch.tensor(CORE_EDGES, device=dev)
+    xs = {"edge values": edge}
+    for K, N in GEMMA_KN:
+        xs[f"weight [{K}, {N}]"] = (randn(N, K).t() * 0.02 if N > 100000
+                                    else randn(K, N) * K ** -0.5)
+    ragged = randn(2304 * 1155 - 3)
+    xs[f"ragged [{ragged.numel()}]"] = ragged * torch.exp2(torch.randint(
+        -20, 20, ragged.shape, generator=gen, device=dev).float())
+    base = randn(2304 * 2304 + 1)
+    xs["misaligned base"] = base[1:]
+    assert base[1:].data_ptr() % 16 != 0
+    xs["transposed [9216, 2304]"] = randn(9216, 2304).t()
+    xs["strided [4, 16, 4, 288][:, 3]"] = randn(4, 16, 4, 288)[:, 3] * 3.0
+    n_store = n_quant = 0
+    for pc in formats:
+        for what, x in xs.items():
+            head = "256000" in what
+            if head and pc not in served:
+                continue        # the heads at the served formats only
+            for xi in ((x,) if head else (x, x.to(torch.bfloat16))):
+                core_check("posit_store", lambda t: PC.posit_store(t, pc),
+                           lambda t: PC.store_plain(t, pc), xi, errs,
+                           f"{pc.name} {what} {xi.dtype}")
+                n_store += xi.numel()
+            s = _pow2_scale(x[torch.isfinite(x)] if what == "edge values"
+                            else x)
+            for si in (s, None):
+                core_check("posit_quantize",
+                           lambda t: PC.posit_quantize(t, pc, si),
+                           lambda t: PC.quantize_plain(t, pc, si), x, errs,
+                           f"{pc.name} {what} s={si}")
+                n_quant += x.numel()
+    torch.cuda.synchronize()
+    log(f"[core codec] bit-equal to the plain versions (NaN as NaN) on 6 "
+        f"formats: posit_load {n_load} words to f32 and bf16 (every 8/16-bit "
+        f"pattern, 2^24 random 32-bit words, a strided view), posit_store "
+        f"{n_store} and posit_quantize {n_quant} values (f32 and bf16; the "
+        f"edge values incl. subnormals -> +-minpos, the five gemma2-2b "
+        f"weight shapes, ragged, misaligned, transposed, strided; the pow2 "
+        f"scale and none); max |diff| "
+        f"{ {k: errs[k] for k in CORE_ENTRIES} }")
+
+
+def aten_ops(fn) -> int:
+    """The aten ops one call of ``fn`` dispatches (each a host dispatch;
+    a ctypes launch is none)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
@@ -1704,7 +1876,8 @@ def main(argv=None) -> int:
     # L-22b, the other P16 variants) and the f32 tile kernel (M > 32, what
     # both refuse: unbounded P32, P32 without truncation)
     errs = {"posit_encode": 0.0, "posit_encode_prescaled": 0.0,
-            "posit_decode": 0.0, "logmac_small": 0.0, "logmac_mma": 0.0,
+            "posit_decode": 0.0, "posit_store": 0.0, "posit_load": 0.0,
+            "posit_quantize": 0.0, "logmac_small": 0.0, "logmac_mma": 0.0,
             "logmac_pieces": 0.0, "logmac_tile": 0.0,
             "paged_flash_decode": 0.0}
     total_launches = dict.fromkeys(_build.LAUNCHES, 0)
@@ -1913,6 +2086,7 @@ def main(argv=None) -> int:
     log(f"[decode] bit-identical f32 on 6 formats, {words.numel()} words "
         f"incl. every 8/16-bit pattern, 0 and NaR (-> 0.0)")
     del words, got, want
+    check_core_codec(dev, errs)
 
     def bits(shape, pc):
         return random_words(shape, pc, gen)
@@ -2323,7 +2497,7 @@ def main(argv=None) -> int:
     assert rep["tokens"] == 128, rep["tokens"]
     assert rep["refills"] >= 1, rep["refills"]
     for name in ("posit_encode_prescaled", "logmac_small",
-                 "paged_flash_decode"):
+                 "paged_flash_decode", "posit_store"):
         assert launches[name] > 0, f"kernel {name} was not launched in serving"
     assert rep["launches_by_width"]["posit_encode_prescaled"].get(16, 0) > 0
     eng = rep["engine"]
@@ -2392,6 +2566,12 @@ def main(argv=None) -> int:
             assert by_width[name].get(w, 0) > 0, (
                 f"{name} not launched at width {w}: {by_width[name]}")
     assert launches["paged_flash_decode"] == 0, launches
+    # the core codec's entries: the KV writes, the gather reference's reads,
+    # the guard's quantize check
+    for name in ("posit_store", "posit_load", "posit_quantize"):
+        assert launches[name] > 0, f"{name} not launched in guarded serving"
+    log(f"[guarded-serve] core codec launches: "
+        f"{ {k: launches[k] for k in CORE_ENTRIES} }")
     assert g["checks"] > 0 and g["violations"] == 0, g
     log(f"[guarded-serve] {card}: {rep['tok_per_s']:.3f} tok/s, request "
         f"latency p50 {rep['latency_p50_s']:.3f}s p99 "
@@ -2414,16 +2594,21 @@ def main(argv=None) -> int:
     ids16 = torch.as_tensor(rep["results"][0][:1].tolist() * 16,
                             device=dev)[None, :]
     pass_s = {"cuda": [], "guarded:cuda": []}
+    pass_launches = {}
     logits = {}
     for backend in ("cuda", "guarded:cuda", "guarded:cuda", "cuda"):
         nctx = NumericsContext.from_ecfg(ecfg, backend=backend)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits[backend], _ = eng.model.prefill(
-            eng.params, ids16, Ctx(numerics=nctx),
-            eng.model.init_cache(1, 16, "uint16"))
-        torch.cuda.synchronize()
-        pass_s[backend].append(time.perf_counter() - t0)
+        with _uncounted():
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            logits[backend], _ = eng.model.prefill(
+                eng.params, ids16, Ctx(numerics=nctx),
+                eng.model.init_cache(1, 16, "uint16"))
+            torch.cuda.synchronize()
+            pass_s[backend].append(time.perf_counter() - t0)
+            pass_launches[backend] = {k: v for k, v in _build.LAUNCHES.items()
+                                      if v}
     torch.testing.assert_close(logits["guarded:cuda"], logits["cuda"],
                                rtol=1e-4, atol=2e-3)
     t_plain = sum(pass_s["cuda"]) / 2
@@ -2432,7 +2617,8 @@ def main(argv=None) -> int:
         f"on cuda, {t_guard:.4f} s on guarded:cuda (guard share "
         f"{100 * (1 - t_plain / t_guard):.1f} % of a guarded pass; each "
         f"pass: {pass_s}); logits max diff "
-        f"{float((logits['guarded:cuda'] - logits['cuda']).abs().max()):.3g}")
+        f"{float((logits['guarded:cuda'] - logits['cuda']).abs().max()):.3g}; "
+        f"launches a pass: {pass_launches}")
     del rep, eng, logits
     torch.cuda.empty_cache()
 
@@ -2503,7 +2689,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     base_s = time.perf_counter() - t0
     launches = path_launches("durable: uninterrupted")
-    for name in ("posit_encode_prescaled", "logmac", "paged_flash_decode"):
+    for name in ("posit_encode_prescaled", "logmac", "paged_flash_decode",
+                 "posit_store"):
         assert launches[name] > 0, f"{name} not launched in the drain"
     snap_dir = os.path.join(HERE, "build", "chip_smoke_snapshots")
     shutil.rmtree(snap_dir, ignore_errors=True)
@@ -2538,7 +2725,8 @@ def main(argv=None) -> int:
         assert np.array_equal(res[rid], base[rid]), (
             f"request {rid}: {res[rid].tolist()} after the restart, "
             f"{base[rid].tolist()} uninterrupted")
-    for name in ("posit_encode_prescaled", "logmac", "paged_flash_decode"):
+    for name in ("posit_encode_prescaled", "logmac", "paged_flash_decode",
+                 "posit_store"):
         after = launches[name] - at_crash[name]
         assert at_crash[name] > 0 and after > 0, (
             f"{name}: {at_crash[name]} launches before the restart, "
@@ -3186,6 +3374,89 @@ def main(argv=None) -> int:
                  "bytes": n * 4 + n * 4, "flops": 0,
                  "ms": dec_ms, "device_ms": dec_dev, "plain_ms": dec_plain})
     del pw
+    # the core codec's entries (csrc/posit_core_codec.cu) at the serving
+    # shapes, first row of each the kernels line's: the guard's check
+    # quantize of the MLP weight with its pow2 scale (8 B a value), then the
+    # other weight shapes, the head's transposed embedding (read in place)
+    # and a decode activation; a decode step's K/V write, bf16 [4, 4, 288]
+    # -> int16 (52 a decode step; 2 + 2 B a value), beside [2304, 9216]
+    # and a strided slice of a prefill slab (copied contiguous first); the
+    # gather reference's read of one layer's K or V, int16 [4, 256, 4,
+    # 288] -> bf16 (52 a guarded decode step), beside [2304, 9216] -> f32
+    spc = ecfg.posit
+    core_rows = []
+    for K, N in [(2304, 9216)] + [kn for kn in GEMMA_KN
+                                  if kn != (2304, 9216)] + [(4, 2304)]:
+        big = N > 100000
+        xq = (torch.randn((N, K), generator=gen, device=dev).t() * 0.02
+              if big else torch.randn((K, N), generator=gen, device=dev)
+              * (1.0 if K == 4 else K ** -0.5))
+        sq = _pow2_scale(xq)
+        core_rows.append(("posit_quantize", f"f32 [{K}, {N}]"
+                          + (" (transposed)" if big else "") + " with s",
+                          lambda xq=xq, sq=sq: PC.posit_quantize(
+                              xq, spc, sq),
+                          lambda xq=xq, sq=sq: PC.quantize_plain(
+                              xq, spc, sq), 8 * xq.numel(), big))
+    kv_row = torch.randn((4, 4, 288), generator=gen, device=dev).to(
+        torch.bfloat16)
+    slab = torch.randn((4, 16, 4, 288), generator=gen, device=dev).to(
+        torch.bfloat16)
+    core_rows += [
+        ("posit_store", "bf16 [4, 4, 288] -> int16 (a K/V write)",
+         lambda: PC.posit_store(kv_row, spc),
+         lambda: PC.store_plain(kv_row, spc), kv_row.numel() * 4, False),
+        ("posit_store", "f32 [2304, 9216] -> int16",
+         lambda: PC.posit_store(xw, spc), lambda: PC.store_plain(xw, spc),
+         n * 6, False),
+        ("posit_store", "bf16 [4, 16, 4, 288][:, 3] -> int16 (strided: "
+         "copied first)", lambda: PC.posit_store(slab[:, 3], spc),
+         lambda: PC.store_plain(slab[:, 3], spc), kv_row.numel() * 4,
+         False)]
+    kv_words = PC.posit_store(torch.randn(
+        (4, 256, 4, 288), generator=gen, device=dev), spc)
+    w16 = PC.posit_store(xw, spc)
+    core_rows += [
+        ("posit_load", "int16 [4, 256, 4, 288] -> bf16 (a layer's K or V)",
+         lambda: PC.posit_load(kv_words, spc, torch.bfloat16),
+         lambda: PC.load_plain(kv_words, spc, torch.bfloat16),
+         kv_words.numel() * 4, False),
+        ("posit_load", "int16 [2304, 9216] -> f32",
+         lambda: PC.posit_load(w16, spc, torch.float32),
+         lambda: PC.load_plain(w16, spc, torch.float32), n * 6, False)]
+    for name, shape, kern, plain, nbytes, big in core_rows:
+        reps = 5 if big else 10
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/posit_core_codec.cu",
+            "replaces": "no TPU kernel: src/repro/core/posit.py:"
+                        + CORE_REPLACES[name] + " (XLA code, no pallas_call)",
+            "shape": shape, "bytes": nbytes, "flops": 0,
+            "ms": time_ms(kern, reps=reps, flush=flush),
+            "device_ms": time_ms(kern, reps=reps, flush=flush,
+                                 device_only=True),
+            "plain_ms": time_ms(plain, reps=2 if big else 3, flush=flush)})
+    del core_rows, kv_words, w16
+    # host dispatches a call: the aten ops of the KV-cache codec and the
+    # guard's quantize on the card, the kernel route against the plain
+    from repro_torch.models.layers import cache_decode, cache_encode
+    kv16 = PC.posit_store(slab, spc)
+    xa = xw[:4].contiguous()
+    sa = _pow2_scale(xa)
+    dispatch = {
+        "cache_encode": (lambda: cache_encode(kv_row, torch.int16, spc),
+                         lambda: PC.store_plain(kv_row, spc)),
+        "cache_decode": (lambda: cache_decode(kv16, torch.bfloat16, spc),
+                         lambda: PC.load_plain(kv16, spc, torch.bfloat16)),
+        "quantize [4, 2304] with s": (
+            lambda: PC.posit_quantize(xa, spc, sa),
+            lambda: PC.quantize_plain(xa, spc, sa))}
+    with _uncounted():
+        log(f"[dispatch] {card}: aten ops a call on the card, kernel route "
+            f"/ plain: " + ", ".join(
+                f"{k} {aten_ops(a)} / {aten_ops(b)}"
+                for k, (a, b) in dispatch.items()))
+    del kv_row, slab, kv16, xa
     # logmac: every projection shape at decode width (M=4) at P16, the
     # prefill buckets (M=16, 32) and the 128-token bucket (M=128: the fp16
     # tensor-core kernel at P16 and P8 L-21b, the bf16-piece kernel at P32
@@ -3437,10 +3708,10 @@ def main(argv=None) -> int:
     # (small-M: P16 M=4; mma: P16 M=128; pieces: P32 L-21b M=128; tile:
     # P32 L-21 M=128), paged decode at the serving positions
     for name in ("posit_encode", "posit_encode_prescaled", "posit_decode",
-                 "logmac_small", "logmac_mma", "logmac_pieces",
+                 *CORE_ENTRIES, "logmac_small", "logmac_mma", "logmac_pieces",
                  "logmac_tile", "paged_flash_decode"):
         r = next(r for r in rows if r["name"] == name)
-        if name.startswith("logmac_"):
+        if name.startswith("logmac_") or name in CORE_ENTRIES:
             assert total_launches[name] > 0, f"{name}: no launch on a path"
         kernels.append({
             "name": name, "route": r["route"], "source": r["source"],

@@ -23,8 +23,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("posit_encode", "posit_decode", "logmac", "logmac_pieces",
-           "paged_decode")
+SOURCES = ("posit_encode", "posit_decode", "posit_core_codec", "logmac",
+           "logmac_pieces", "paged_decode")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # REPRO_TORCH_NVCC_VERBOSE=1 adds -Xptxas -v and prints each kernel's
@@ -140,9 +140,12 @@ def check(err: int, what: str) -> None:
 # ``WIDTH_LAUNCHES`` splits the same launches by posit word width.
 # ``logmac`` counts every logmac launch, and ``logmac_small``,
 # ``logmac_mma``, ``logmac_pieces`` and ``logmac_tile`` the same launches
-# by the kernel that ran (``kernels/logmac.py: _plan``).
+# by the kernel that ran (``kernels/logmac.py: _plan``).  ``posit_store``,
+# ``posit_load`` and ``posit_quantize`` are the core codec's entries
+# (``csrc/posit_core_codec.cu``).
 LAUNCHES = {"posit_encode": 0, "posit_encode_prescaled": 0,
-            "posit_decode": 0, "logmac": 0, "logmac_small": 0,
+            "posit_decode": 0, "posit_store": 0, "posit_load": 0,
+            "posit_quantize": 0, "logmac": 0, "logmac_small": 0,
             "logmac_mma": 0, "logmac_pieces": 0, "logmac_tile": 0,
             "paged_flash_decode": 0}
 WIDTH_LAUNCHES: dict[str, dict[int, int]] = {k: {} for k in LAUNCHES}

@@ -7,8 +7,10 @@ kernel into the f32 quire value — the EULER-ADAS NCE in three launches.
 per-tensor pow2 pre-scale: each operand's scale and words come from one
 fused pass (``encode_prescaled``), the words go to logmac as they are, and
 the product is scaled back by ``sa * sb`` on the device.
-Each wrapper dispatches on its tensors' device: CPU tensors run the plain
-versions, CUDA tensors the kernels.
+``store``, ``load`` and ``quantize`` are the core codec's entries
+(``core.posit``'s bits, not the encode and decode kernels': see
+``posit_codec``).  Each wrapper dispatches on its tensors' device: CPU
+tensors run the plain versions, CUDA tensors the kernels.
 """
 from __future__ import annotations
 
@@ -33,6 +35,22 @@ def encode_prescaled(x: torch.Tensor, pc, pre_scale: bool = True,
 def decode(pat: torch.Tensor, pc) -> torch.Tensor:
     """Posit words -> f32 through the decode kernel (0 and NaR -> 0.0)."""
     return _codec.posit_decode(pat, pc)
+
+
+def store(x: torch.Tensor, pc) -> torch.Tensor:
+    """f32 or bf16 -> ``pc``'s storage words, the core codec's encode
+    (subnormals -> +-minpos)."""
+    return _codec.posit_store(x, pc)
+
+
+def load(words: torch.Tensor, pc, out_dtype=torch.float32) -> torch.Tensor:
+    """Storage words -> f32 or bf16, the core codec's decode (NaR -> NaN)."""
+    return _codec.posit_load(words, pc, out_dtype)
+
+
+def quantize(x: torch.Tensor, pc, s=None) -> torch.Tensor:
+    """f32 -> ``quantize(x / s) * s`` (``quantize(x)`` where s is None)."""
+    return _codec.posit_quantize(x, pc, s)
 
 
 def logmac_matmul(a_pat: torch.Tensor, b_pat: torch.Tensor,

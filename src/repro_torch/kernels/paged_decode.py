@@ -41,6 +41,7 @@ from repro_torch.core.engine import dot_general as _dot_general
 from repro_torch.core.logmult import effective_trunc
 from . import _build
 from . import logmac as _logmac
+from . import posit_codec as _codec
 from .logmac import decode_planes_raw, subtracts_rem
 from .posit_codec import encode_body
 
@@ -61,7 +62,7 @@ def gather_pages(pages, table):
 def decode_words(x, pc, out_dtype=torch.float32):
     """Posit storage words -> float (identity cast for float caches)."""
     if pc is not None and not torch.is_floating_point(x):
-        return _P.decode_to_float(_P.from_storage(x, pc), pc, out_dtype)
+        return _codec.posit_load(x, pc, out_dtype)
     return x.to(out_dtype)
 
 

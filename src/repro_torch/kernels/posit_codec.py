@@ -18,8 +18,27 @@ the group, then the encode launch.
 ``posit_decode`` maps words to f32 through the ILM ``val`` plane
 (``decode_planes_raw`` with stages 0), like the TPU decode kernel: zero and
 NaR both decode to 0.0 and the mantissa is converted to f32 before it is
-scaled.  That is not the core codec's ``decode_to_float`` (NaR -> NaN), so
-no caller of the core codec is routed here; ``ops.decode`` is its entry.
+scaled.  ``ops.decode`` is its entry.
+
+The core codec's callers (``core.posit``: the KV-cache words, the guard's
+quantize check and sentinels, ``out_quant``, fault injection) go to three
+other entries, ``csrc/posit_core_codec.cu``, whose bits are the core
+codec's and not the TPU kernels': subnormal inputs encode to +-minpos (the
+encode kernel flushes them to 0), NaR decodes to NaN (0.0 above), and the
+fraction is rounded as ``decode_to_float`` rounds it, ``1 + frac * 2^-W``
+in the output dtype (P32's f32 result can differ by an ulp from the
+decode kernel's; bf16 rounds in bf16):
+
+* ``posit_store(x, pc)``: f32 or bf16 -> storage words (``to_storage(
+  encode_from_float(x))``), the KV-cache write;
+* ``posit_load(words, pc, out_dtype)``: storage words -> f32 or bf16
+  (``decode_to_float(from_storage(words))``), the KV-cache read;
+* ``posit_quantize(x, pc, s)``: f32 -> f32, ``quantize(x / s) * s`` in one
+  pass (``quantize(x)`` where ``s`` is None), the words never in memory.
+
+Each takes any layout: a tensor whose elements fill one block of memory
+(contiguous, or a permutation of it such as a transpose) is read in place
+and its output laid out alike; any other view is copied contiguous first.
 
 Patterns come back as ``int32`` tensors holding the uint32 word's bits (low
 N bits valid); the plain version's int64 result is narrowed the same way.
@@ -294,4 +313,139 @@ def posit_decode(pat: torch.Tensor, pc: P.PositConfig) -> torch.Tensor:
              pc.regime_max or 0, _build.stream_ptr(pat))
     _build.check(err, "posit_decode")
     _build.count_launch("posit_decode", pc.n_bits)
+    return out
+
+
+# ---- the core codec's entries (csrc/posit_core_codec.cu) -----------------
+
+_STORE_INPUTS = {torch.float32: 0, torch.bfloat16: 1}
+_LOAD_OUTPUTS = {torch.float32: 0, torch.bfloat16: 1}
+CORE_THREADS = 256
+CORE_MAX_BLOCKS = 132 * 16  # grid-stride beyond this
+
+
+def store_plain(x, pc: P.PositConfig) -> torch.Tensor:
+    """The plain version of ``posit_store``: the core codec's words in
+    ``pc``'s storage dtype."""
+    return P.to_storage(P.encode_from_float(x, pc), pc)
+
+
+def load_plain(words, pc: P.PositConfig, out_dtype=torch.float32
+               ) -> torch.Tensor:
+    """The plain version of ``posit_load`` (NaR -> NaN)."""
+    return P.decode_to_float(P.from_storage(words, pc), pc, out_dtype)
+
+
+def quantize_plain(x, pc: P.PositConfig, s=None) -> torch.Tensor:
+    """The plain version of ``posit_quantize``: ``quantize(x / s) * s``,
+    or ``quantize(x)`` where ``s`` is None."""
+    if s is None:
+        return P.quantize(x, pc)
+    return P.quantize(x / s, pc) * s
+
+
+def _in_place(x: torch.Tensor) -> torch.Tensor:
+    """``x`` where its elements fill one block of memory in some order
+    (then ``torch.empty_like`` lays the output out alike, so element i of
+    the block maps to element i of the output's), else a contiguous
+    copy."""
+    order = sorted(range(x.ndim), key=lambda d: -x.stride(d))
+    return x if x.permute(order).is_contiguous() else x.contiguous()
+
+
+def _core_args(x: torch.Tensor, pc: P.PositConfig, what: str, dtypes
+               ) -> torch.Tensor:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if pc.min_scale < -126:
+        # the kernel encodes a subnormal as minpos, right only where
+        # minpos lies above every subnormal
+        raise ValueError(f"{what}: {pc.name}'s minpos is below 2^-126")
+    if x.dtype not in dtypes:
+        raise ValueError(f"{what}: kernel takes {sorted(map(str, dtypes))} "
+                         f"(got {x.dtype})")
+    return _in_place(x)
+
+
+def _core_blocks(n: int) -> int:
+    return max(1, min(CORE_MAX_BLOCKS, -(-n // CORE_THREADS)))
+
+
+def posit_store(x: torch.Tensor, pc: P.PositConfig) -> torch.Tensor:
+    """f32 or bf16 -> ``pc``'s storage words (``pc.storage_dtype``: uint8 /
+    int16 / int32 holding the unsigned word), the core codec's encode: +-0
+    -> 0, subnormals -> +-minpos, Inf and NaN -> NaR.  A ``meta`` tensor
+    (the dry run) runs the plain version: shapes only."""
+    if x.device.type in ("cpu", "meta"):
+        return store_plain(x, pc)
+    x = _core_args(x, pc, "posit_store", _STORE_INPUTS)
+    out = torch.empty_like(x, dtype=pc.storage_dtype)
+    n = x.numel()
+    if n:
+        fn = _build.function(
+            "posit_core_codec", "posit_store_launch",
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_void_p])
+        _build.check(fn(x.data_ptr(), _STORE_INPUTS[x.dtype], out.data_ptr(),
+                        n, pc.n_bits, pc.es, pc.regime_max or 0,
+                        _core_blocks(n), _build.stream_ptr(x)),
+                     "posit_store")
+        _build.count_launch("posit_store", pc.n_bits)
+    return out
+
+
+def posit_load(words: torch.Tensor, pc: P.PositConfig,
+               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``pc``'s storage words -> f32 or bf16, the core codec's decode
+    (NaR -> NaN), rounded in ``out_dtype`` as ``decode_to_float`` rounds.
+    A ``meta`` tensor runs the plain version."""
+    if words.device.type in ("cpu", "meta"):
+        return load_plain(words, pc, out_dtype)
+    words = _core_args(words, pc, "posit_load", (pc.storage_dtype,))
+    if out_dtype not in _LOAD_OUTPUTS:
+        raise ValueError(f"posit_load: kernel writes float32 or bfloat16 "
+                         f"(got {out_dtype})")
+    out = torch.empty_like(words, dtype=out_dtype)
+    n = words.numel()
+    if n:
+        fn = _build.function(
+            "posit_core_codec", "posit_load_launch",
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_void_p])
+        _build.check(fn(words.data_ptr(), out.data_ptr(),
+                        _LOAD_OUTPUTS[out_dtype], n, pc.n_bits, pc.es,
+                        pc.regime_max or 0, _core_blocks(n),
+                        _build.stream_ptr(words)), "posit_load")
+        _build.count_launch("posit_load", pc.n_bits)
+    return out
+
+
+def posit_quantize(x: torch.Tensor, pc: P.PositConfig,
+                   s: torch.Tensor | None = None) -> torch.Tensor:
+    """f32 -> f32: ``quantize(x / s) * s`` (IEEE division, the f32
+    product), ``s`` a 0-dim f32 tensor on x's device, or ``quantize(x)``
+    where ``s`` is None.  A ``meta`` tensor runs the plain version."""
+    if x.device.type in ("cpu", "meta"):
+        return quantize_plain(x, pc, s)
+    x = _core_args(x, pc, "posit_quantize", (torch.float32,))
+    if s is not None and (s.device != x.device or s.dtype != torch.float32
+                          or s.numel() != 1):
+        raise ValueError("posit_quantize: s must be one float32 value on "
+                         f"{x.device} (got {s.dtype} {tuple(s.shape)} on "
+                         f"{s.device})")
+    out = torch.empty_like(x)
+    n = x.numel()
+    if n:
+        fn = _build.function(
+            "posit_core_codec", "posit_quantize_launch",
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_void_p])
+        _build.check(fn(x.data_ptr(), None if s is None else s.data_ptr(),
+                        out.data_ptr(), n, pc.n_bits, pc.es,
+                        pc.regime_max or 0, _core_blocks(n),
+                        _build.stream_ptr(x)), "posit_quantize")
+        _build.count_launch("posit_quantize", pc.n_bits)
     return out

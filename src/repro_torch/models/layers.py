@@ -58,6 +58,7 @@ from repro_torch.core import posit as _P
 from repro_torch.core import xla_f32 as _X
 from repro_torch.core.engine import EulerConfig, no_batch_dot
 from repro_torch.distributed import collectives as C
+from repro_torch.kernels import posit_codec as _codec
 from repro_torch.numerics import NumericsContext
 
 _NEG = -1e30
@@ -73,14 +74,16 @@ def cache_encode(x, cache_dtype, pc=None):
     matches."""
     pc = _P.storage_pc(cache_dtype, pc)
     if pc is not None:
-        return _P.to_storage(_P.encode_from_float(x, pc), pc)
+        return _codec.posit_store(x, pc)
     return x.to(cache_dtype)
 
 
 def cache_decode(x, out_dtype=torch.bfloat16, pc=None):
+    """Read-side KV-cache codec: posit words back to ``out_dtype`` (NaR ->
+    NaN); float caches as they are."""
     pc = _P.storage_pc(x.dtype, pc)
     if pc is not None:
-        return _P.decode_to_float(_P.from_storage(x, pc), pc, out_dtype)
+        return _codec.posit_load(x, pc, out_dtype)
     return x
 
 

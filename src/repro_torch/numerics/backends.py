@@ -41,7 +41,6 @@ import math
 import torch
 
 from repro_torch.core import engine as _E
-from repro_torch.core import posit as _P
 from repro_torch.core.engine import EulerConfig
 
 
@@ -160,7 +159,7 @@ class CudaBackend(LaxRefBackend):
         else:
             out = _K.euler_matmul_fused(af, bf, cfg)
         if cfg.out_quant:
-            out = _P.quantize(out, cfg.posit)
+            out = _K.quantize(out, cfg.posit)
         return out.reshape(lhs_free + rhs_free).to(cfg.dtype)
 
     def decode_attention(self, q, k_pages, v_pages, page_table, pos,

@@ -32,6 +32,7 @@ import zlib
 import torch
 
 from repro_torch.core import posit as P
+from repro_torch.kernels import posit_codec as _codec
 
 ROLES = ("sign", "regime_run", "regime_term", "exponent", "fraction", "any")
 OPERANDS = ("a", "b", "both")
@@ -300,7 +301,9 @@ def corrupt(x, cfg, plan: FaultPlan, key: int, step: int, salt: int = 0):
     Mirrors the engine's datapath: pre-scale (when the EulerConfig uses
     it), encode to posit words, flip per plan, decode back.  Untouched
     words keep their exact float value, so the only perturbation is the
-    injected flips.  ``salt`` decorrelates the call sites of one step."""
+    injected flips.  ``salt`` decorrelates the call sites of one step.
+    The encode and decode are the core codec's entries (kernels on a CUDA
+    tensor); the flips stay plain: they are the fault model."""
     pc = cfg.posit
     xf = torch.as_tensor(x).to(torch.float32)
     if not plan.active_at(int(step)):
@@ -310,7 +313,7 @@ def corrupt(x, cfg, plan: FaultPlan, key: int, step: int, salt: int = 0):
         s = _E._pow2_scale(xf)
     else:
         s = torch.ones((), dtype=torch.float32, device=xf.device)
-    pat = P.encode_from_float(xf / s, pc)
+    pat = P.from_storage(_codec.posit_store(xf / s, pc), pc)
     key = fold_in(key, salt)
     r = retry_index()
     if r:  # guard recompute: fresh draw (transient faults don't replay)
@@ -318,7 +321,7 @@ def corrupt(x, cfg, plan: FaultPlan, key: int, step: int, salt: int = 0):
     flipped, hit = flip_words(pat, pc, plan, key)
     if plan.record and r == 0:
         _count_injection(int(hit.sum()))
-    xq = P.decode_to_float(flipped, pc) * s
+    xq = _codec.posit_load(P.to_storage(flipped, pc), pc) * s
     return torch.where(hit, xq, xf).to(x.dtype)
 
 

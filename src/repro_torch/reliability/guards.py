@@ -37,6 +37,7 @@ import torch
 from repro_torch.core import engine as _E
 from repro_torch.core import posit as _P
 from repro_torch.core.engine import EulerConfig
+from repro_torch.kernels import posit_codec as _codec
 
 RECORD_MODES = ("events", "full", "off")
 
@@ -117,8 +118,8 @@ def _quantize_like(x, cfg: EulerConfig):
     xf = torch.as_tensor(x).to(torch.float32)
     if cfg.mode not in _POSIT_MODES:
         return xf
-    s = _E._pow2_scale(xf) if cfg.pre_scale else 1.0
-    return _P.quantize(xf / s, cfg.posit) * s
+    s = _E._pow2_scale(xf) if cfg.pre_scale else None
+    return _codec.posit_quantize(xf, cfg.posit, s)
 
 
 def _rhs_free(b_ndim: int, dimension_numbers):
@@ -169,7 +170,7 @@ def sentinel_counts(out, cfg: EulerConfig):
     xf = torch.as_tensor(out).to(torch.float32)
     if cfg.pre_scale:
         xf = xf / _E._pow2_scale(xf)
-    flags = word_flags(_P.encode_from_float(xf, pc), pc)
+    flags = word_flags(_P.from_storage(_codec.posit_store(xf, pc), pc), pc)
     nar = int(flags["is_nar"].sum())
     sat = int((flags["saturated"] & ~flags["is_zero"]
                & ~flags["is_nar"]).sum())
