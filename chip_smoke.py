@@ -16,18 +16,24 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    the five gemma2-2b weight shapes at the model init's scale, activations
    at M in {1, 4, 16, 32}, every weight shape of the mamba2-1.3b and
    hymba-1.5b paths with activations at each of their K for M in {1, 4,
-   128, 256}, a ragged size, a misaligned base and edge values; the heads at
+   128, 256}, a ragged size, a misaligned base, edge values and 1 %
+   subnormals (not counted in the scale, XLA's flush); the heads at
    the served format only; two launches bit-identical), posit decode
    (bit-identical f32 on
    six formats: every 8- and 16-bit pattern plus 2^24 random 32-bit
-   words), the core codec's three entries (``posit_store``,
-   ``posit_load``, ``posit_quantize``; ``check_core_codec``) bit for bit
-   against their plain versions, NaN as NaN, on six formats: every 8- and
-   16-bit word and 2^24 random 32-bit words loaded to f32 and bf16, f32
-   and bf16 stores and quantizes (with the pow2 scale and without) of edge
-   values (subnormals -> +-minpos), the five gemma2-2b weight shapes (the
-   head at the served P16 and P8), a ragged size, a misaligned base, a
-   transposed weight and a strided slice, the served P16 format's decode table bit for bit against the
+   words), the core codec's five entries (``posit_store``,
+   ``posit_load``, ``posit_quantize`` and the guard's
+   ``posit_quantize_prescaled`` and ``posit_sentinels``;
+   ``check_core_codec``) bit for bit against their plain versions, NaN
+   as NaN, on six formats: every 8- and 16-bit word and 2^24 random
+   32-bit words loaded to f32 and bf16, f32 and bf16 stores and quantizes
+   of edge values (subnormals -> 0, XLA's flush), the five gemma2-2b
+   weight shapes (the head at the served P16 and P8), a ragged size, a
+   misaligned base, a transposed weight, a strided slice, head logits and
+   1 % subnormals; the guard's entries given the kernel's s, that s
+   bit-equal to the fused encode's on the same memory (also next to a .5
+   tie of the mean log2), the sentinels with and without the scale, each
+   input's margin to a tie printed; the served P16 format's decode table bit for bit against the
    plain decode, logmac over every 8- and 16-bit pattern (and 2^20
    32-bit words) as B with K = 1 and M in {1, 4, 33, 64}, equal to the
    plain version (the bf16-piece kernel, P32 above 32 rows, within
@@ -75,11 +81,13 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    demotions and mixed-level steps, the fused encode and logmac launched
    at widths 8 and 16, paged flash-decode not launched (the guarded path
    attends through the gather reference, as the JAX package does),
-   ``posit_store``, ``posit_load`` (the gather reference's reads) and
-   ``posit_quantize`` (the guard's check) launched and their counts
-   printed, guard checks with zero violations; then a 16-token prefill
-   on ``cuda`` and ``guarded:cuda`` in turns (the guard's share, each
-   pass's launches);
+   ``posit_store``, ``posit_load`` (the gather reference's reads),
+   ``posit_quantize_prescaled`` and ``posit_sentinels`` (the guard's
+   check and sentinels) launched and their counts printed, guard checks
+   with zero violations; then a 16-token prefill on ``cuda`` and
+   ``guarded:cuda`` in turns (the guard's share, each pass's launches,
+   both guard entries launched, logits equal to ``cuda``'s within the
+   model bar);
 3c. the fault-injection campaign ``repro_torch.launch.faultcamp --smoke
    --guard`` (the TINY model in posit mode: no kernel) with its asserts;
 3d. the ``ops.encode`` -> ``ops.decode`` codec path on an MLP weight;
@@ -102,8 +110,9 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    encode and logmac's small-M kernel launched, its tile kernel and paged
    flash-decode not; then a 128-token prefill on the served engine
    (logmac's tensor-core kernel launched, the tile kernel not), finite
-   logits; then each SMOKE model's logits on the kernels against the
-   reference engine;
+   logits, the share of subnormal values in the operands the SSD
+   pre-scales printed; then each SMOKE model's logits on the kernels
+   against the reference engine;
 3g. training: gemma2-2b SMOKE (L-21b P16, ``lax_ref``, batch 4, seq 64)
    takes two train steps on the card and on the CPU from one initial
    state (losses within rtol 1e-4, atol 2e-3); one step replayed from the
@@ -149,7 +158,9 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    L-21 at P32, L-21b at P16 8_16 and P32 8_16_32: each call one pair of
    fused encodes and one logmac (the kernel its plan picks: at M = 128
    the fp16, bf16-piece or tile kernel), within the per-element bound of
-   ``lax_ref``, its error metrics against the f64 product printed; (c) the
+   ``lax_ref``, its error metrics against the f64 product printed, then
+   P16 L-21b with ``out_quant`` (``posit_quantize`` without a scale)
+   bit-equal to the plain quantize of the unquantized output; (c) the
    quire at K = 9216: bposit16 words from the fused encode decoded by the
    decode kernel bit-equal to ``ref_decode`` on the CPU, and for 32
    outputs ``ref_exact_posit_mac`` (the decode kernel, f32 matmul),
@@ -224,13 +235,16 @@ Phases (each asserts; a failed phase exits non-zero and prints no result):
    kernel and the activations' fused encode at hymba's eval shapes
    (M = 256); the fused encode and logmac (M = 4 and 32) at the shapes of
    3h-3j, and paged decode at their geometries; the core codec's entries:
-   ``posit_quantize`` (the guard's check, with s) at the five gemma2-2b
+   ``posit_quantize_prescaled`` (the guard's check) at the five gemma2-2b
    weight shapes (the head transposed, read in place) and a decode
-   activation, ``posit_store`` of a decode step's K/V row (and of
-   [2304, 9216], and of a strided slice, copied first), ``posit_load`` of
-   one layer's gathered K or V to bf16 (and [2304, 9216] to f32); then the
-   aten ops a call of ``cache_encode``, ``cache_decode`` and the quantize
-   dispatches on the card, kernel route against plain.
+   activation, ``posit_sentinels`` of a 16-token prefill's MLP output and
+   logits and of a decode step's output, ``posit_quantize`` (out_quant)
+   of the API call's [128, 9216] output, ``posit_store`` of a decode
+   step's K/V row (and of [2304, 9216], and of a strided slice, copied
+   first), ``posit_load`` of one layer's gathered K or V to bf16 (and
+   [2304, 9216] to f32); then the aten ops a call of ``cache_encode``,
+   ``cache_decode`` and the guard's two entries dispatch on the card,
+   kernel route against plain.
 
 Launch counts are reset just before each path (3, 3b, 3c, 3d, the four
 drains of 3e, each model of 3f, the eval step of 3g, the drains of 3h and
@@ -615,6 +629,7 @@ def phase_numerics(dev, gen, card: str, path_launches, logmac_kernel,
     from repro_torch.core.metrics import error_metrics
     from repro_torch.kernels import _build
     from repro_torch.kernels import ops as OPS
+    from repro_torch.kernels import posit_codec as PC
     from repro_torch.kernels import ref as KR
     from repro_torch.models.layers import Ctx
     from repro_torch.models.transformer import Model
@@ -678,7 +693,28 @@ def phase_numerics(dev, gen, card: str, path_launches, logmac_kernel,
                 f"{float(diff.max()):.3g} (bound min "
                 f"{float(bound.min()):.3g})")
             del y, ref, va, ra, vb, rb, bound, diff
-    del w, x, exact
+    # out_quant (the output rounded to the posit format, ``posit_quantize``
+    # without a scale): bit for bit the plain quantize of the same call's
+    # unquantized output
+    cfg = from_variant(16, "L-21b")
+    with NU.use(cfg, backend="cuda"):
+        y = NU.matmul(x, w)
+    _build.reset_launches()
+    with NU.use(cfg.replace(out_quant=True), backend="cuda"):
+        yq = NU.matmul(x, w)
+    torch.cuda.synchronize()
+    got = path_launches("api out_quant")
+    for k, n in got.items():
+        api_launches[k] += n
+    assert got["posit_quantize"] == 1, got
+    want = PC.quantize_plain(y.float(), cfg.posit).to(yq.dtype)
+    same = (yq.view(torch.int32) == want.view(torch.int32)) | (
+        torch.isnan(yq) & torch.isnan(want))
+    assert bool(same.all()), "api out_quant: not the plain quantize's bits"
+    log(f"[api] {card}: numerics.matmul P16 L-21b out_quant [{x.shape[0]}, "
+        f"{K}] x [{K}, {N}] on cuda: bit-equal to the plain quantize of the "
+        f"unquantized output; launches {got}")
+    del w, x, exact, y, yq, want
 
     # (c) the quire at K = 9216 (the down projection), bposit16
     pc = from_variant(16, "L-21b").posit
@@ -920,6 +956,7 @@ def recording(bound_checks: _Checks | None = None, moved: list | None = None):
     whether the rank's own rows alone would give another."""
     import torch
     from repro_torch.core import engine as E
+    from repro_torch.core import posit as P
     from repro_torch.kernels import logmac as LM
     from repro_torch.kernels import posit_codec as PC
 
@@ -937,7 +974,8 @@ def recording(bound_checks: _Checks | None = None, moved: list | None = None):
                 # the split entry against its plain version, same group
                 s2 = p2(x, group)
                 assert float(s2) == float(s), "split encode's scale"
-                assert torch.equal(PC.encode_plain(x / s2, pc), w), \
+                assert torch.equal(PC.encode_plain(
+                    P.flushed_quotient(x, s2), pc), w), \
                     "split encode's words"
                 split_checked.append(1)
             return w, s
@@ -1651,9 +1689,10 @@ def phase_multi_device(card: str, path_launches) -> dict:
 
 
 # ---- the core codec's entries (csrc/posit_core_codec.cu) ----------------
-CORE_ENTRIES = ("posit_store", "posit_load", "posit_quantize")
-# f32 edge values: zeros, NaN, Inf, subnormals (the core codec: +-minpos),
-# the f32 extremes, and each format's clamp edges (2^+-e, one step out)
+CORE_ENTRIES = ("posit_store", "posit_load", "posit_quantize",
+                "posit_quantize_prescaled", "posit_sentinels")
+# f32 edge values: zeros, NaN, Inf, subnormals (XLA's flush: 0), the f32
+# extremes, and each format's clamp edges (2^+-e, one step out)
 CORE_EDGES = ([0.0, -0.0, float("nan"), float("inf"), -float("inf"), 1e-40,
                -1e-40, 1.4e-45, -1.4e-45, 1.1754942e-38, 2.0 ** -126,
                -2.0 ** -126, 3e38, -3e38, 3.4028235e38, 1e-30, -1e-30, 1e30,
@@ -1662,10 +1701,14 @@ CORE_EDGES = ([0.0, -0.0, float("nan"), float("inf"), -float("inf"), 1e-40,
                  for v in (2.0 ** e, 2.0 ** (e + 1), 2.0 ** -e,
                            2.0 ** -(e + 1), -1.5 * 2.0 ** -(e + 1))])
 CORE_CHUNK = 1 << 24   # the plain versions run a chunk at a time
-# the JAX core codec function each entry computes (no pallas_call)
-CORE_REPLACES = {"posit_store": "195 encode_from_float",
-                 "posit_load": "170 decode_to_float",
-                 "posit_quantize": "265 quantize"}
+# the JAX function each entry computes (no pallas_call)
+CORE_REPLACES = {
+    "posit_store": "src/repro/core/posit.py:195 encode_from_float",
+    "posit_load": "src/repro/core/posit.py:170 decode_to_float",
+    "posit_quantize": "src/repro/core/posit.py:265 quantize",
+    "posit_quantize_prescaled":
+        "src/repro/reliability/guards.py:153 _quantize_like",
+    "posit_sentinels": "src/repro/reliability/guards.py:209 sentinel_counts"}
 
 
 def core_compare(name: str, got, want, errs: dict, what: str) -> None:
@@ -1700,16 +1743,44 @@ def core_check(name, kernel, plain, x, errs, what) -> None:
                      plain(flat[c0:c0 + CORE_CHUNK]), errs, what)
 
 
+def memory_order(x):
+    """``x`` as a contiguous tensor in its memory order: the permuted view
+    where its elements fill one block (a transpose), else a copy."""
+    order = sorted(range(x.ndim), key=lambda d: -x.stride(d))
+    v = x.permute(order)
+    return v if v.is_contiguous() else x.contiguous()
+
+
+def tie_margin(x) -> float | None:
+    """|mean - (floor(mean) + 0.5)| of the f64 mean log2|x| over the
+    values the pre-scale counts (normal and nonzero; None where that mean
+    is not finite): how far the scale's rounding is from a tie."""
+    import torch
+    ax = x.abs().reshape(-1)
+    lg = torch.log2(ax[ax >= 2.0 ** -126]).double()
+    if not lg.numel() or not bool(torch.isfinite(lg).all()):
+        return None
+    m = float(lg.mean())
+    return abs(m - (m // 1 + 0.5))
+
+
 def check_core_codec(dev, errs: dict) -> None:
     """Phase 2's checks of the core codec's entries, bit for bit against
     their plain versions (NaN as NaN), on a generator of their own (the
     later checks draw as before): every 8/16-bit pattern and 2^24 random
-    32-bit words loaded to f32 and bf16; f32 and bf16 stores and
-    quantizes, with the pow2 scale and without, of the edge values, the
-    five gemma2-2b weight shapes at the model init's scale (the head, the
-    transposed embedding the guard checks, at the served P16 and the
-    ladder's P8 only), a ragged size, a misaligned base, a transposed
-    weight (read in place) and a strided slice (copied first)."""
+    32-bit words loaded to f32 and bf16; f32 and bf16 stores and f32
+    quantizes of the edge values, the five gemma2-2b weight shapes at the model init's
+    scale (the head, the transposed embedding the guard checks, at the
+    served P16 and the ladder's P8 only), a ragged size, a misaligned
+    base, a transposed weight (read in place), a strided slice (copied
+    first), head logits and a tensor whose 1 % subnormals would move its
+    scale were they counted.  The guard's entries on the same inputs:
+    ``posit_quantize_prescaled``'s s bit-equal to
+    ``posit_encode_prescaled``'s on the same memory and its values to the
+    plain version given that s; ``posit_sentinels`` with and without the
+    scale equal to the plain counts given it (not on the weights: the
+    sentinels count outputs, as the logits); each input's margin of its
+    mean log2 to a .5 tie."""
     import torch
     from repro_torch.core import posit as P
     from repro_torch.core.engine import _pow2_scale, from_variant
@@ -1757,34 +1828,98 @@ def check_core_codec(dev, errs: dict) -> None:
     assert base[1:].data_ptr() % 16 != 0
     xs["transposed [9216, 2304]"] = randn(9216, 2304).t()
     xs["strided [4, 16, 4, 288][:, 3]"] = randn(4, 16, 4, 288)[:, 3] * 3.0
-    n_store = n_quant = 0
+    xs["logits [16, 256000]"] = randn(16, 256000) * 8.0
+    sub = randn(1 << 20) * 0.25
+    pick = torch.rand(sub.shape, generator=gen, device=dev) < 0.01
+    sub[pick] = torch.rand(sub.shape, generator=gen, device=dev)[pick] * (
+        2.0 ** -126)
+    xs["1 % subnormal [2^20]"] = sub
+    n_store = n_quant = n_guard = n_sent = 0
+    margins = {}
     for pc in formats:
         for what, x in xs.items():
             head = "256000" in what
             if head and pc not in served:
                 continue        # the heads at the served formats only
-            for xi in ((x,) if head else (x, x.to(torch.bfloat16))):
+            weight = what.startswith(("weight", "transposed"))
+            for xi in ((x,) if head and weight
+                       else (x, x.to(torch.bfloat16))):
                 core_check("posit_store", lambda t: PC.posit_store(t, pc),
                            lambda t: PC.store_plain(t, pc), xi, errs,
                            f"{pc.name} {what} {xi.dtype}")
                 n_store += xi.numel()
-            s = _pow2_scale(x[torch.isfinite(x)] if what == "edge values"
-                            else x)
-            for si in (s, None):
-                core_check("posit_quantize",
-                           lambda t: PC.posit_quantize(t, pc, si),
-                           lambda t: PC.quantize_plain(t, pc, si), x, errs,
-                           f"{pc.name} {what} s={si}")
-                n_quant += x.numel()
+            core_check("posit_quantize", lambda t: PC.posit_quantize(t, pc),
+                       lambda t: PC.quantize_plain(t, pc), x, errs,
+                       f"{pc.name} {what}")
+            n_quant += x.numel()
+            # the guard's check: the fused encode's scale, bit for bit
+            q, s = PC.posit_quantize_prescaled(x, pc)
+            _, s_enc = PC.posit_encode_prescaled(memory_order(x), pc)
+            assert float(s) == float(s_enc), (
+                f"posit_quantize_prescaled {pc.name} {what}: s {float(s)} "
+                f"!= the fused encode's {float(s_enc)}")
+            core_check("posit_quantize_prescaled", lambda t: q,
+                       lambda t: PC.quantize_plain(t, pc, s), x, errs,
+                       f"{pc.name} {what}")
+            n_guard += x.numel()
+            del q
+            if what not in margins:
+                margins[what] = tie_margin(x)
+            if weight:
+                continue        # the sentinels count outputs
+            for pre in (True, False):
+                got = PC.posit_sentinels(x, pc, pre)
+                flat = x.reshape(-1)
+                want = sum(PC.sentinels_plain(flat[c0:c0 + CORE_CHUNK], pc,
+                                              pre, s if pre else None)
+                           for c0 in range(0, flat.numel(), CORE_CHUNK))
+                diff = float((got - want).abs().max())
+                errs["posit_sentinels"] = max(errs["posit_sentinels"], diff)
+                assert torch.equal(got, want), (
+                    f"posit_sentinels {pc.name} {what} pre_scale={pre}: "
+                    f"{got.tolist()} != {want.tolist()}")
+                n_sent += x.numel()
     torch.cuda.synchronize()
     log(f"[core codec] bit-equal to the plain versions (NaN as NaN) on 6 "
         f"formats: posit_load {n_load} words to f32 and bf16 (every 8/16-bit "
         f"pattern, 2^24 random 32-bit words, a strided view), posit_store "
         f"{n_store} and posit_quantize {n_quant} values (f32 and bf16; the "
-        f"edge values incl. subnormals -> +-minpos, the five gemma2-2b "
-        f"weight shapes, ragged, misaligned, transposed, strided; the pow2 "
-        f"scale and none); max |diff| "
-        f"{ {k: errs[k] for k in CORE_ENTRIES} }")
+        f"edge values incl. subnormals -> 0, the five gemma2-2b weight "
+        f"shapes, ragged, misaligned, transposed, strided, head logits, 1 % "
+        f"subnormals); the guard's posit_quantize_prescaled {n_guard} values (s bit-equal to "
+        f"posit_encode_prescaled's on every input) and posit_sentinels "
+        f"{n_sent} values (with and without the scale); max |diff| "
+        f"{ {k: errs[k] for k in CORE_ENTRIES} }; margin of the mean log2 "
+        f"to a .5 tie: {margins}")
+
+
+@contextlib.contextmanager
+def ssd_subnormals():
+    """Counts, over the operands the SSD's contractions pre-scale (inside
+    the ``ssm`` scope, where ``engine._pow2_scale`` takes them: batched
+    contractions run on the reference engine), their subnormal values (a
+    device tensor), all their values and the operands holding one."""
+    import torch
+    from repro_torch.core import engine as E
+    from repro_torch.numerics import api as NA
+    tally = {"subnormal": 0, "values": 0, "operands": 0, "with": 0}
+    orig = E._pow2_scale
+
+    def spy(x, group=None):
+        if "ssm" in NA.current_path().split("/"):
+            ax = x.detach().abs()
+            n = ((ax > 0) & (ax < 2.0 ** -126)).sum()   # no host read here
+            tally["subnormal"] = tally["subnormal"] + n
+            tally["with"] = tally["with"] + (n > 0).long()
+            tally["values"] += x.numel()
+            tally["operands"] += 1
+        return orig(x, group)
+
+    E._pow2_scale = spy
+    try:
+        yield tally
+    finally:
+        E._pow2_scale = orig
 
 
 def aten_ops(fn) -> int:
@@ -1877,7 +2012,8 @@ def main(argv=None) -> int:
     # both refuse: unbounded P32, P32 without truncation)
     errs = {"posit_encode": 0.0, "posit_encode_prescaled": 0.0,
             "posit_decode": 0.0, "posit_store": 0.0, "posit_load": 0.0,
-            "posit_quantize": 0.0, "logmac_small": 0.0, "logmac_mma": 0.0,
+            "posit_quantize": 0.0, "posit_quantize_prescaled": 0.0,
+            "posit_sentinels": 0.0, "logmac_small": 0.0, "logmac_mma": 0.0,
             "logmac_pieces": 0.0, "logmac_tile": 0.0,
             "paged_flash_decode": 0.0}
     total_launches = dict.fromkeys(_build.LAUNCHES, 0)
@@ -1941,7 +2077,8 @@ def main(argv=None) -> int:
         flat, wf = x.reshape(-1), w.reshape(-1)
         for c0 in range(0, flat.numel(), chunk):   # the plain int64 codec
             xs = flat[c0:c0 + chunk]               # in chunks (the head)
-            want = PC.encode_plain(xs / want_s if pre_scale else xs, pc)
+            want = PC.encode_plain(P.flushed_quotient(xs, want_s)
+                                   if pre_scale else xs, pc)
             got = wf[c0:c0 + chunk]
             bad = int((got != want).sum())
             assert bad == 0, f"fused encode {what} {pc.name}: {bad} words"
@@ -1988,6 +2125,15 @@ def main(argv=None) -> int:
                               2.0 ** -126, 2.0 ** -120, 3e38, -3e38, 1e-30,
                               float("nan"), 0.0])
     fused_in["edge values"] = edge
+    # 1 % subnormals, which would move the scale were they counted (a
+    # generator of its own: the later checks draw from gen as before)
+    gsub = torch.Generator(device=dev)
+    gsub.manual_seed(24)
+    sub = torch.randn(1 << 20, generator=gsub, device=dev) * 0.25
+    pick = torch.rand(sub.shape, generator=gsub, device=dev) < 0.01
+    sub[pick] = torch.rand(sub.shape, generator=gsub, device=dev)[pick] * (
+        2.0 ** -126)
+    fused_in["1 % subnormal [2^20]"] = sub
     fused_in["all zero"] = torch.zeros(1000, device=dev)
     fused_in["with Inf"] = torch.tensor([1.0, float("inf"), -2.0, 0.5],
                                         device=dev)
@@ -2008,7 +2154,7 @@ def main(argv=None) -> int:
         f"launches the same bits: {len(fused_in)} inputs (the heads at "
         f"bposit16 only; gemma2-2b, mamba2-1.3b and hymba-1.5b weight "
         f"shapes); scales {scales}")
-    del fused_in, ragged, base, edge
+    del fused_in, ragged, base, edge, sub
     # the weight shapes of phases 3h-3j (the model init's scale; the heads
     # are the tied embeddings at 0.02) and activations at each of their K
     # for M in {1, 4, 32}, at the served format with and without pre-scale
@@ -2055,10 +2201,14 @@ def main(argv=None) -> int:
         torch_s = float(_pow2_scale(xt))
         assert float(s) == want, (f"fused encode next to a tie: mean "
                                   f"{m} -> {float(s)}, want {want}")
+        # the guard's check takes the same scale
+        _, s_guard = PC.posit_quantize_prescaled(xt, ecfg.posit)
+        assert float(s_guard) == float(s), (m, float(s_guard), float(s))
         near.append({"mean_minus_tie": m - tie, "s": float(s),
                      "torch_s": torch_s})
     log(f"[encode_prescaled] next to the tie {tie} of the mean log2: the "
-        f"scale follows the f64 mean on {len(near)} inputs, torch's f32 "
+        f"scale follows the f64 mean on {len(near)} inputs (the guard's "
+        f"posit_quantize_prescaled takes the same s on each), torch's f32 "
         f"_pow2_scale agrees on "
         f"{sum(r['s'] == r['torch_s'] for r in near)}: {near}")
     del w0, xt
@@ -2567,8 +2717,9 @@ def main(argv=None) -> int:
                 f"{name} not launched at width {w}: {by_width[name]}")
     assert launches["paged_flash_decode"] == 0, launches
     # the core codec's entries: the KV writes, the gather reference's reads,
-    # the guard's quantize check
-    for name in ("posit_store", "posit_load", "posit_quantize"):
+    # the guard's quantize check and sentinels (the fused guard entries)
+    for name in ("posit_store", "posit_load", "posit_quantize_prescaled",
+                 "posit_sentinels"):
         assert launches[name] > 0, f"{name} not launched in guarded serving"
     log(f"[guarded-serve] core codec launches: "
         f"{ {k: launches[k] for k in CORE_ENTRIES} }")
@@ -2611,6 +2762,9 @@ def main(argv=None) -> int:
                                       if v}
     torch.testing.assert_close(logits["guarded:cuda"], logits["cuda"],
                                rtol=1e-4, atol=2e-3)
+    for name in ("posit_quantize_prescaled", "posit_sentinels"):
+        assert pass_launches["guarded:cuda"].get(name, 0) > 0, (
+            name, pass_launches)
     t_plain = sum(pass_s["cuda"]) / 2
     t_guard = sum(pass_s["guarded:cuda"]) / 2
     log(f"[guard-share] {card}: FULL 16-token prefill pass {t_plain:.4f} s "
@@ -2865,9 +3019,17 @@ def main(argv=None) -> int:
         first = next(iter(rep["results"].values()))
         ids128 = torch.as_tensor((list(first) * 128)[:128], device=dev)
         _build.reset_launches()
-        logits, _ = eng.model.prefill(eng.params, ids128[None, :], eng.ctx,
-                                      eng.model.init_cache(1, 128))
+        with ssd_subnormals() as tally:
+            logits, _ = eng.model.prefill(eng.params, ids128[None, :],
+                                          eng.ctx,
+                                          eng.model.init_cache(1, 128))
         pre = path_launches(f"prefill {arch} 128 tokens")
+        nsub, nval = int(tally["subnormal"]), tally["values"]
+        share = 100 * nsub / max(nval, 1)
+        log(f"[serve {arch}] the SSD's operands in the 128-token prefill: "
+            f"{nsub} subnormal of {nval} values ({share:.4f} %) in "
+            f"{tally['operands']} pre-scaled operands, "
+            f"{int(tally['with'])} of them holding one or more")
         assert pre["logmac_mma"] > 0 and pre["logmac_tile"] == 0, pre
         assert logits.shape == (1, mod.FULL.vocab_padded)
         assert bool(torch.isfinite(logits).all()), f"non-finite {arch} logits"
@@ -3275,8 +3437,10 @@ def main(argv=None) -> int:
     phase_start("3k")
     # ---- phase 3k: the public numerics API and the paper's arithmetic ---
     got = phase_numerics(dev, gen, card, path_launches, logmac_kernel)
-    # 14 configurations at two row counts, one logmac each
-    assert got["posit_decode"] == 4 and got["logmac"] == 28, got
+    # 14 configurations at two row counts, one logmac each, and the
+    # out_quant call's
+    assert got["posit_decode"] == 4 and got["logmac"] == 29, got
+    assert got["posit_quantize"] == 1, got
     # the first two examples, each with its own assertions
     from repro_torch.examples import mixed_precision, quickstart
     _build.reset_launches()
@@ -3376,9 +3540,13 @@ def main(argv=None) -> int:
     del pw
     # the core codec's entries (csrc/posit_core_codec.cu) at the serving
     # shapes, first row of each the kernels line's: the guard's check
-    # quantize of the MLP weight with its pow2 scale (8 B a value), then the
-    # other weight shapes, the head's transposed embedding (read in place)
-    # and a decode activation; a decode step's K/V write, bf16 [4, 4, 288]
+    # operand, posit_quantize_prescaled of the MLP weight (its pow2 scale
+    # from the fused encode's reduce; 12 B a value: x twice, q once), then
+    # the other weight shapes, the head's transposed embedding (read in
+    # place) and a decode activation; the guard's sentinels of a 16-token
+    # prefill's MLP output, of its logits and of a decode step's output
+    # (8 B a value: x twice); out_quant's posit_quantize (no scale; 8 B a
+    # value) of the public API call's output; a decode step's K/V write, bf16 [4, 4, 288]
     # -> int16 (52 a decode step; 2 + 2 B a value), beside [2304, 9216]
     # and a strided slice of a prefill slab (copied contiguous first); the
     # gather reference's read of one layer's K or V, int16 [4, 256, 4,
@@ -3391,13 +3559,22 @@ def main(argv=None) -> int:
         xq = (torch.randn((N, K), generator=gen, device=dev).t() * 0.02
               if big else torch.randn((K, N), generator=gen, device=dev)
               * (1.0 if K == 4 else K ** -0.5))
-        sq = _pow2_scale(xq)
-        core_rows.append(("posit_quantize", f"f32 [{K}, {N}]"
-                          + (" (transposed)" if big else "") + " with s",
-                          lambda xq=xq, sq=sq: PC.posit_quantize(
-                              xq, spc, sq),
-                          lambda xq=xq, sq=sq: PC.quantize_plain(
-                              xq, spc, sq), 8 * xq.numel(), big))
+        core_rows.append(("posit_quantize_prescaled", f"f32 [{K}, {N}]"
+                          + (" (transposed)" if big else "") + " -> (q, s)",
+                          lambda xq=xq: PC.posit_quantize_prescaled(xq, spc),
+                          lambda xq=xq: PC.quantize_prescaled_plain(xq, spc),
+                          12 * xq.numel(), big))
+    for M, N in ((16, 9216), (16, 256000), (4, 2304)):
+        xo = torch.randn((M, N), generator=gen, device=dev) * 4.0
+        core_rows.append(("posit_sentinels", f"f32 [{M}, {N}] -> int64 [2]",
+                          lambda xo=xo: PC.posit_sentinels(xo, spc),
+                          lambda xo=xo: PC.sentinels_plain(xo, spc),
+                          8 * xo.numel(), False))
+    yo = torch.randn((128, 9216), generator=gen, device=dev) * 4.0
+    core_rows.append(("posit_quantize", "f32 [128, 9216] (out_quant)",
+                      lambda: PC.posit_quantize(yo, spc),
+                      lambda: PC.quantize_plain(yo, spc), 8 * yo.numel(),
+                      False))
     kv_row = torch.randn((4, 4, 288), generator=gen, device=dev).to(
         torch.bfloat16)
     slab = torch.randn((4, 16, 4, 288), generator=gen, device=dev).to(
@@ -3429,8 +3606,8 @@ def main(argv=None) -> int:
         rows.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/posit_core_codec.cu",
-            "replaces": "no TPU kernel: src/repro/core/posit.py:"
-                        + CORE_REPLACES[name] + " (XLA code, no pallas_call)",
+            "replaces": "no TPU kernel: " + CORE_REPLACES[name]
+                        + " (XLA code, no pallas_call)",
             "shape": shape, "bytes": nbytes, "flops": 0,
             "ms": time_ms(kern, reps=reps, flush=flush),
             "device_ms": time_ms(kern, reps=reps, flush=flush,
@@ -3442,15 +3619,17 @@ def main(argv=None) -> int:
     from repro_torch.models.layers import cache_decode, cache_encode
     kv16 = PC.posit_store(slab, spc)
     xa = xw[:4].contiguous()
-    sa = _pow2_scale(xa)
     dispatch = {
         "cache_encode": (lambda: cache_encode(kv_row, torch.int16, spc),
                          lambda: PC.store_plain(kv_row, spc)),
         "cache_decode": (lambda: cache_decode(kv16, torch.bfloat16, spc),
                          lambda: PC.load_plain(kv16, spc, torch.bfloat16)),
-        "quantize [4, 2304] with s": (
-            lambda: PC.posit_quantize(xa, spc, sa),
-            lambda: PC.quantize_plain(xa, spc, sa))}
+        "the guard's quantize check [4, 9216]": (
+            lambda: PC.posit_quantize_prescaled(xa, spc),
+            lambda: PC.quantize_prescaled_plain(xa, spc)),
+        "the guard's sentinels [4, 9216]": (
+            lambda: PC.posit_sentinels(xa, spc),
+            lambda: PC.sentinels_plain(xa, spc))}
     with _uncounted():
         log(f"[dispatch] {card}: aten ops a call on the card, kernel route "
             f"/ plain: " + ", ".join(

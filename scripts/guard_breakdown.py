@@ -11,10 +11,15 @@ launcher's guard (``GuardConfig(record="full")``, as phase 3b serves) in
 turns (plain, guarded, guarded, plain), as chip_smoke's guard-share line
 does.  Then one more guarded pass with each step of the guard timed
 alone, ``torch.cuda.synchronize()`` before and after it: the base
-contraction, ``_quantize_like`` (and within it ``_pow2_scale``),
-``violation`` (the ABFT sums and check dots), ``sentinel_counts`` (and
-within it ``word_flags``); what is left of the pass is the guard's other
-host work.  Prints the card's name and power limit, then one JSON line.
+contraction, ``_quantize_like`` (and within it the fused entry
+``posit_quantize_prescaled`` where the checkout has it, else
+``_pow2_scale``), ``violation`` (the ABFT sums and check dots),
+``sentinel_counts`` (and within it ``posit_sentinels``, else
+``word_flags``); what is left of the pass is the guard's other host work.
+Prints the card's name and power limit, then one JSON line.
+
+Run this checkout and its parent in one call, in turns, to compare them:
+``python3 scripts/guard_breakdown.py --src build/parent --tag parent``.
 """
 from __future__ import annotations
 
@@ -47,6 +52,7 @@ def main(argv=None) -> int:
     from repro_torch.core import engine as E
     from repro_torch.core.engine import from_variant
     from repro_torch.kernels import _build
+    from repro_torch.kernels import posit_codec as PC
     from repro_torch.launch import pin_exact_f32
     from repro_torch.models.layers import Ctx
     from repro_torch.models.transformer import Model
@@ -102,9 +108,13 @@ def main(argv=None) -> int:
         return wrapped
 
     cuda_cls = type(B.get_backend("cuda"))
+    # the guard's steps, and within them the fused entries (this tree) or
+    # the torch chains they replaced (the parent)
     patches = [(cuda_cls, "dot_general"), (G, "_quantize_like"),
                (E, "_pow2_scale"), (G, "violation"), (G, "sentinel_counts"),
-               (ECE, "word_flags")]
+               (ECE, "word_flags")] + [
+        (PC, name) for name in ("posit_quantize_prescaled", "posit_sentinels")
+        if hasattr(PC, name)]
     saved = [(obj, name, getattr(obj, name)) for obj, name in patches]
     for obj, name, fn in saved:
         setattr(obj, name, timed(name, fn))

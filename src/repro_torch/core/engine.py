@@ -163,11 +163,13 @@ def _pow2_scale(x, group=None):
     ``group``: the process group over which ``x``'s rows are split (data
     parallel); the sum of log2 and the count of nonzeros are then summed
     over it before the mean is rounded, so every rank gets the scale of
-    the whole tensor, as the reference's GSPMD run computes it."""
+    the whole tensor, as the reference's GSPMD run computes it.
+
+    Only normal nonzero values count: the reference's ``ax > 0`` runs
+    under XLA's flush, which reads a subnormal as 0."""
     ax = x.detach().to(torch.float32).abs()
-    nz = ax > 0
-    lg = torch.where(nz, torch.log2(torch.clamp(ax, min=1e-38)),
-                     torch.zeros((), device=ax.device))
+    nz = ax >= P.MIN_NORMAL
+    lg = torch.where(nz, torch.log2(ax), torch.zeros((), device=ax.device))
     lg_sum, count = lg.sum(), nz.sum()
     if group is not None:
         from repro_torch.distributed.collectives import all_reduce
@@ -280,13 +282,14 @@ def operand_planes(x, cfg: EulerConfig, group=None):
          else torch.ones((), dtype=torch.float32, device=x.device))
     if cfg.mode in ("posit", "quant_only"):
         def planes(xc):
-            q = P.quantize(xc.to(torch.float32) / s, pc) * s
+            q = P.flush_subnormals(P.quantize(
+                P.flushed_quotient(xc.to(torch.float32), s), pc) * s)
             return _ste(q, xc).to(cfg.dtype), None
     elif cfg.mode == "euler":
         def planes(xc):
             val, rem = LM.ilm_planes_from_float(
-                xc.to(torch.float32) / s, pc, cfg.stages, cfg.trunc,
-                cfg.sublane)
+                P.flushed_quotient(xc.to(torch.float32), s), pc,
+                cfg.stages, cfg.trunc, cfg.sublane)
             return (_ste(val * s, xc).to(cfg.dtype),
                     (rem * s).detach().to(cfg.dtype))
     else:

@@ -19,6 +19,12 @@ Representation notes
 * Encode rounds to nearest even in the pattern domain, clamps to
   minpos/maxpos (no rounding to zero, no overflow), maps 0 to 0 and
   NaN/Inf to NaR.
+* XLA flushes f32 and bf16 subnormals to zero, on its CPU runtime as on a
+  TPU, so the reference encodes a subnormal input as 0, reads a
+  subnormal dividend of a pre-scale ``x / s`` as 0, and a product of the
+  codec's values that goes subnormal is a signed 0.  The port follows
+  that rule (``encode_from_float``, :func:`flush_subnormals`,
+  :func:`flushed_quotient`).
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import dataclasses
 import torch
 
 _GUARD = 26  # guard bits carried through encode; exact for float32 inputs
+MIN_NORMAL = 2.0 ** -126  # the smallest normal float32 (and bfloat16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +122,17 @@ def exp2i(e: torch.Tensor) -> torch.Tensor:
     """Exact 2^e (float32) for integer e in [-126, 127], from exponent bits."""
     bits = (e.to(torch.int32).clamp(-126, 127) + 127) << 23
     return bits.view(torch.float32)
+
+
+def flush_subnormals(t: torch.Tensor) -> torch.Tensor:
+    """XLA's flush of a result: subnormal values become (signed) zero."""
+    return torch.where(t.abs() < MIN_NORMAL, t * 0.0, t)
+
+
+def flushed_quotient(x: torch.Tensor, s) -> torch.Tensor:
+    """``x / s`` as XLA computes it: a subnormal ``x`` reads as 0 (a
+    subnormal quotient needs no flush here: the encode takes it as 0)."""
+    return flush_subnormals(x) / s
 
 
 def pow2(e: torch.Tensor) -> torch.Tensor:
@@ -213,13 +231,14 @@ def _rne_shift(v, sh):
 
 
 def encode_from_float(x, cfg: PositConfig):
-    """Encode a float tensor to posit patterns (int64, low n_bits valid)."""
+    """Encode a float tensor to posit patterns (int64, low n_bits valid);
+    zero and subnormal inputs give 0 (XLA's flush)."""
     N, es, G = cfg.n_bits, cfg.es, _GUARD
     xf = torch.as_tensor(x).to(torch.float32)
     sign = torch.signbit(xf)
     a = xf.abs()
     finite = torch.isfinite(xf)
-    is_zero = a == 0
+    is_zero = a < MIN_NORMAL
     is_nar = ~finite
 
     m, ex = torch.frexp(torch.where(is_zero | is_nar, torch.ones_like(a), a))

@@ -46,22 +46,18 @@ import struct
 import torch
 import torch.nn.functional as F
 
+# XLA's kernels flush subnormal results to (signed) zero
+from repro_torch.core.posit import MIN_NORMAL as _MIN_NORMAL
+from repro_torch.core.posit import flush_subnormals as _ftz
+
 
 def _h(hexd: str) -> float:
     """The float32 value of an LLVM IR hex float constant (a double)."""
     return struct.unpack(">d", bytes.fromhex(hexd))[0]
 
 
-_MIN_NORMAL = _h("3810000000000000")     # 2^-126
-
-
 def _f(v: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=like.device)
-
-
-def _ftz(t: torch.Tensor) -> torch.Tensor:
-    """XLA's kernels flush subnormal results to (signed) zero."""
-    return torch.where(t.abs() < _MIN_NORMAL, t * 0.0, t)
 
 
 def _fma(a, b, c) -> torch.Tensor:

@@ -141,11 +141,13 @@ def check(err: int, what: str) -> None:
 # ``logmac`` counts every logmac launch, and ``logmac_small``,
 # ``logmac_mma``, ``logmac_pieces`` and ``logmac_tile`` the same launches
 # by the kernel that ran (``kernels/logmac.py: _plan``).  ``posit_store``,
-# ``posit_load`` and ``posit_quantize`` are the core codec's entries
+# ``posit_load``, ``posit_quantize``, ``posit_quantize_prescaled`` and
+# ``posit_sentinels`` are the core codec's entries
 # (``csrc/posit_core_codec.cu``).
 LAUNCHES = {"posit_encode": 0, "posit_encode_prescaled": 0,
             "posit_decode": 0, "posit_store": 0, "posit_load": 0,
-            "posit_quantize": 0, "logmac": 0, "logmac_small": 0,
+            "posit_quantize": 0, "posit_quantize_prescaled": 0,
+            "posit_sentinels": 0, "logmac": 0, "logmac_small": 0,
             "logmac_mma": 0, "logmac_pieces": 0, "logmac_tile": 0,
             "paged_flash_decode": 0}
 WIDTH_LAUNCHES: dict[str, dict[int, int]] = {k: {} for k in LAUNCHES}

@@ -18,8 +18,9 @@
 // a chunk of ppb consecutive pages (1 up to 64-page tables;
 // kernels/paged_decode.py: pages_per_block):
 //
-//   q prep, one block: sq = 2^round(mean log2|q| over q's nonzero
-//     elements), at least 1e-30 (1 without pre-scale), as the plain
+//   q prep, one block: sq = 2^round(mean log2|q| over q's normal nonzero
+//     elements: XLA's flush reads a subnormal as 0 in the reference's
+//     _pow2_scale), at least 1e-30 (1 without pre-scale), as the plain
 //     version's _q_setup; scl = sq / sqrt(hd); q / sq encoded in the qk
 //     format (a fixed-order block sum);
 //   pass 1, grid (chunk, b*kv): decode q's planes once, then per page the
@@ -110,8 +111,8 @@ pd_q_prep_kernel(const float* __restrict__ q, int n, int pre_scale,
   if (pre_scale) {
     for (int i = tid; i < n; i += QP_THREADS) {
       const float ax = fabsf(q[i]);
-      if (ax > 0.0f) {
-        s += log2f(fmaxf(ax, 1e-38f));
+      if (ax >= 0x1p-126f) {
+        s += log2f(ax);
         ++c;
       }
     }
@@ -141,7 +142,8 @@ pd_q_prep_kernel(const float* __restrict__ q, int n, int pre_scale,
   __syncthreads();
   const float sq = sq_s;
   for (int i = tid; i < n; i += QP_THREADS)
-    sc.qpat[i] = euler::encode_f32(q[i] / sq, qk_pc);
+    sc.qpat[i] =
+        euler::encode_f32(euler::flush_subnormal(q[i]) / sq, qk_pc);
 }
 
 // FX: the wrapper passed one 16-bit decode table for every format here

@@ -45,6 +45,11 @@ __device__ __forceinline__ int floor_div_pow2(int x, int sh) {
   return (x % d != 0 && x < 0) ? q - 1 : q;
 }
 
+// XLA's flush of an f32 value: a subnormal becomes a (signed) 0.
+__device__ __forceinline__ float flush_subnormal(float v) {
+  return fabsf(v) < 0x1p-126f ? copysignf(0.0f, v) : v;
+}
+
 __device__ __forceinline__ float exp2i(int e) {
   e = e < -126 ? -126 : (e > 127 ? 127 : e);
   return __uint_as_float((uint32_t)(e + 127) << 23);
@@ -179,17 +184,24 @@ __device__ __forceinline__ EncodeEntry encode_entry(int e8, Posit pc) {
   return en;
 }
 
+// The magnitude's (N-1)-bit body, before the sign, zero and NaR.
+__device__ __forceinline__ uint32_t body_by_entry(uint32_t bits,
+                                                  const EncodeEntry& en,
+                                                  Posit pc) {
+  const uint32_t S = en.shifts & 0xFFu, L = (en.shifts >> 8) & 0xFFu;
+  const uint32_t T = (en.ehi | ((bits & mask32(23)) << 3)) << L;
+  const uint32_t lsb = (T >> S) & (en.shifts >> 16);
+  const uint32_t body = en.base + ((T + en.half + lsb) >> S);
+  const uint32_t maxbody = mask32(pc.N - 1);
+  return body < 1u ? 1u : (body > maxbody ? maxbody : body);
+}
+
 __device__ __forceinline__ uint32_t encode_by_entry(uint32_t bits,
                                                     const EncodeEntry& en,
                                                     Posit pc) {
   const int N = pc.N;
   const uint32_t e8 = (bits >> 23) & 0xFFu;
-  const uint32_t S = en.shifts & 0xFFu, L = (en.shifts >> 8) & 0xFFu;
-  const uint32_t T = (en.ehi | ((bits & mask32(23)) << 3)) << L;
-  const uint32_t lsb = (T >> S) & (en.shifts >> 16);
-  uint32_t body = en.base + ((T + en.half + lsb) >> S);
-  const uint32_t maxbody = mask32(N - 1);
-  body = body < 1u ? 1u : (body > maxbody ? maxbody : body);
+  const uint32_t body = body_by_entry(bits, en, pc);
   uint32_t pat = (bits >> 31) ? ((0u - body) & mask32(N)) : body;
   if (e8 == 0u) pat = 0u;
   if (e8 == 0xFFu) pat = 1u << (N - 1);

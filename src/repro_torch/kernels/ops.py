@@ -39,7 +39,7 @@ def decode(pat: torch.Tensor, pc) -> torch.Tensor:
 
 def store(x: torch.Tensor, pc) -> torch.Tensor:
     """f32 or bf16 -> ``pc``'s storage words, the core codec's encode
-    (subnormals -> +-minpos)."""
+    (subnormals -> 0, as XLA flushes them)."""
     return _codec.posit_store(x, pc)
 
 
@@ -48,9 +48,9 @@ def load(words: torch.Tensor, pc, out_dtype=torch.float32) -> torch.Tensor:
     return _codec.posit_load(words, pc, out_dtype)
 
 
-def quantize(x: torch.Tensor, pc, s=None) -> torch.Tensor:
-    """f32 -> ``quantize(x / s) * s`` (``quantize(x)`` where s is None)."""
-    return _codec.posit_quantize(x, pc, s)
+def quantize(x: torch.Tensor, pc) -> torch.Tensor:
+    """f32 -> ``quantize(x)``, the core codec's round trip in one pass."""
+    return _codec.posit_quantize(x, pc)
 
 
 def logmac_matmul(a_pat: torch.Tensor, b_pat: torch.Tensor,

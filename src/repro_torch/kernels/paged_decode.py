@@ -128,7 +128,7 @@ def _q_setup(q, k_pages, cfg_qk: EulerConfig):
     else:
         sq = torch.ones((), dtype=torch.float32, device=q.device)
     scl = (sq * (hd ** -0.5)).reshape(1).to(torch.float32)
-    return (qf / sq).contiguous(), scl
+    return _P.flushed_quotient(qf, sq).contiguous(), scl
 
 
 def lane_dot(a, b):

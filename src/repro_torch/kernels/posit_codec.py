@@ -21,20 +21,29 @@ NaR both decode to 0.0 and the mantissa is converted to f32 before it is
 scaled.  ``ops.decode`` is its entry.
 
 The core codec's callers (``core.posit``: the KV-cache words, the guard's
-quantize check and sentinels, ``out_quant``, fault injection) go to three
-other entries, ``csrc/posit_core_codec.cu``, whose bits are the core
-codec's and not the TPU kernels': subnormal inputs encode to +-minpos (the
-encode kernel flushes them to 0), NaR decodes to NaN (0.0 above), and the
+quantize check and sentinels, ``out_quant``, fault injection) go to the
+entries of ``csrc/posit_core_codec.cu``, whose bits are the core codec's
+and not the TPU kernels': NaR decodes to NaN (0.0 above), and the
 fraction is rounded as ``decode_to_float`` rounds it, ``1 + frac * 2^-W``
 in the output dtype (P32's f32 result can differ by an ulp from the
-decode kernel's; bf16 rounds in bf16):
+decode kernel's; bf16 rounds in bf16).  Both codecs follow XLA's flush,
+as the JAX package runs on XLA: a subnormal input encodes to 0, a
+subnormal counts as 0 in the pre-scale, and a product ``q * s`` that goes
+subnormal is a signed 0.
 
 * ``posit_store(x, pc)``: f32 or bf16 -> storage words (``to_storage(
   encode_from_float(x))``), the KV-cache write;
 * ``posit_load(words, pc, out_dtype)``: storage words -> f32 or bf16
   (``decode_to_float(from_storage(words))``), the KV-cache read;
-* ``posit_quantize(x, pc, s)``: f32 -> f32, ``quantize(x / s) * s`` in one
-  pass (``quantize(x)`` where ``s`` is None), the words never in memory.
+* ``posit_quantize(x, pc)``: f32 -> f32, ``quantize(x)`` in one pass, the
+  words never in memory (``out_quant``);
+* ``posit_quantize_prescaled(x, pc)``: f32 -> ``(quantize(x / s) * s, s)``
+  with ``s`` the pow2 pre-scale of x, the guard's check operand: the
+  fused encode's reduce launch, then the quantize launch, so ``s`` is
+  ``posit_encode_prescaled``'s on the same tensor, bit for bit;
+* ``posit_sentinels(x, pc, pre_scale)``: f32 -> int64 ``[2]``, the NaR and
+  saturated words of ``x / s`` (or of ``x``), the guard's sentinels, from
+  the same reduce; the words never in memory.
 
 Each takes any layout: a tensor whose elements fill one block of memory
 (contiguous, or a permutation of it such as a transpose) is read in place
@@ -254,7 +263,7 @@ def encode_prescaled_plain(x, pc: P.PositConfig, pre_scale: bool = True,
         return (encode_plain(xf, pc),
                 torch.ones((), dtype=torch.float32, device=xf.device))
     s = _E._pow2_scale(xf, group)
-    return encode_plain(xf / s, pc), s
+    return encode_plain(P.flushed_quotient(xf, s), pc), s
 
 
 def posit_encode_prescaled(x: torch.Tensor, pc: P.PositConfig,
@@ -337,11 +346,39 @@ def load_plain(words, pc: P.PositConfig, out_dtype=torch.float32
 
 
 def quantize_plain(x, pc: P.PositConfig, s=None) -> torch.Tensor:
-    """The plain version of ``posit_quantize``: ``quantize(x / s) * s``,
-    or ``quantize(x)`` where ``s`` is None."""
+    """The plain version of ``posit_quantize`` (``quantize(x)``, ``s``
+    None) and of ``posit_quantize_prescaled``'s values:
+    ``quantize(x / s) * s`` with XLA's flush of the product."""
     if s is None:
         return P.quantize(x, pc)
-    return P.quantize(x / s, pc) * s
+    return P.flush_subnormals(P.quantize(P.flushed_quotient(x, s), pc) * s)
+
+
+def quantize_prescaled_plain(x, pc: P.PositConfig, s=None
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``posit_quantize_prescaled``:
+    ``(quantize_plain(x, pc, s), s)`` with ``s = engine._pow2_scale(x)``
+    unless ``s`` is given (the kernel's, to hold the rest bit for bit)."""
+    xf = torch.as_tensor(x).to(torch.float32)
+    if s is None:
+        s = _E._pow2_scale(xf)
+    return quantize_plain(xf, pc, s), s
+
+
+def sentinels_plain(x, pc: P.PositConfig, pre_scale: bool = True, s=None
+                    ) -> torch.Tensor:
+    """The plain version of ``posit_sentinels``: ``x / s`` encoded by the
+    core codec and classified by ``reliability.ece.word_flags``, as int64
+    ``[nar, saturated]`` (saturated: the regime run at its cap, neither
+    zero nor NaR).  ``s = engine._pow2_scale(x)`` unless given; no scale
+    without pre-scale."""
+    from repro_torch.reliability.ece import word_flags
+    xf = torch.as_tensor(x).to(torch.float32)
+    if pre_scale:
+        xf = P.flushed_quotient(xf, _E._pow2_scale(xf) if s is None else s)
+    flags = word_flags(P.encode_from_float(xf, pc), pc)
+    sat = flags["saturated"] & ~flags["is_zero"] & ~flags["is_nar"]
+    return torch.stack([flags["is_nar"].sum(), sat.sum()])
 
 
 def _in_place(x: torch.Tensor) -> torch.Tensor:
@@ -357,10 +394,6 @@ def _core_args(x: torch.Tensor, pc: P.PositConfig, what: str, dtypes
                ) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
-    if pc.min_scale < -126:
-        # the kernel encodes a subnormal as minpos, right only where
-        # minpos lies above every subnormal
-        raise ValueError(f"{what}: {pc.name}'s minpos is below 2^-126")
     if x.dtype not in dtypes:
         raise ValueError(f"{what}: kernel takes {sorted(map(str, dtypes))} "
                          f"(got {x.dtype})")
@@ -374,7 +407,7 @@ def _core_blocks(n: int) -> int:
 def posit_store(x: torch.Tensor, pc: P.PositConfig) -> torch.Tensor:
     """f32 or bf16 -> ``pc``'s storage words (``pc.storage_dtype``: uint8 /
     int16 / int32 holding the unsigned word), the core codec's encode: +-0
-    -> 0, subnormals -> +-minpos, Inf and NaN -> NaR.  A ``meta`` tensor
+    and subnormals -> 0, Inf and NaN -> NaR.  A ``meta`` tensor
     (the dry run) runs the plain version: shapes only."""
     if x.device.type in ("cpu", "meta"):
         return store_plain(x, pc)
@@ -422,30 +455,88 @@ def posit_load(words: torch.Tensor, pc: P.PositConfig,
     return out
 
 
-def posit_quantize(x: torch.Tensor, pc: P.PositConfig,
-                   s: torch.Tensor | None = None) -> torch.Tensor:
-    """f32 -> f32: ``quantize(x / s) * s`` (IEEE division, the f32
-    product), ``s`` a 0-dim f32 tensor on x's device, or ``quantize(x)``
-    where ``s`` is None.  A ``meta`` tensor runs the plain version."""
+def posit_quantize(x: torch.Tensor, pc: P.PositConfig) -> torch.Tensor:
+    """f32 -> f32: ``quantize(x)``.  A ``meta`` tensor runs the plain
+    version."""
     if x.device.type in ("cpu", "meta"):
-        return quantize_plain(x, pc, s)
+        return quantize_plain(x, pc)
     x = _core_args(x, pc, "posit_quantize", (torch.float32,))
-    if s is not None and (s.device != x.device or s.dtype != torch.float32
-                          or s.numel() != 1):
-        raise ValueError("posit_quantize: s must be one float32 value on "
-                         f"{x.device} (got {s.dtype} {tuple(s.shape)} on "
-                         f"{s.device})")
     out = torch.empty_like(x)
     n = x.numel()
     if n:
         fn = _build.function(
             "posit_core_codec", "posit_quantize_launch",
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_void_p])
-        _build.check(fn(x.data_ptr(), None if s is None else s.data_ptr(),
-                        out.data_ptr(), n, pc.n_bits, pc.es,
-                        pc.regime_max or 0, _core_blocks(n),
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p])
+        _build.check(fn(x.data_ptr(), out.data_ptr(), n, pc.n_bits, pc.es,
+                        pc.regime_max or 0,
+                        _encode_plan(n, False).encode_blocks,
                         _build.stream_ptr(x)), "posit_quantize")
         _build.count_launch("posit_quantize", pc.n_bits)
+    return out
+
+
+def posit_quantize_prescaled(x: torch.Tensor, pc: P.PositConfig
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 -> ``(quantize(x / s) * s, s)``, ``s`` the pow2 pre-scale of x
+    (a 0-dim f32 tensor on x's device): the guard's check operand.  On the
+    card ``s`` comes from ``posit_encode_prescaled``'s reduce (the same
+    launch and fixed trees, so the same bits on the same tensor; a tensor
+    read in place in another order than the row-major one sums its terms
+    in memory order), where the plain version takes torch's
+    ``_pow2_scale`` (see ``posit_encode_prescaled`` on where the two can
+    differ).  A ``meta`` tensor runs the plain version."""
+    if x.device.type in ("cpu", "meta"):
+        return quantize_prescaled_plain(x, pc)
+    x = _core_args(x, pc, "posit_quantize_prescaled", (torch.float32,))
+    n = x.numel()
+    plan = _encode_plan(n)
+    out = torch.empty_like(x)
+    s = torch.empty((), dtype=torch.float32, device=x.device)
+    # one (f64 sum, int64 count) pair of 16 bytes per reduce block
+    parts = torch.empty((plan.reduce_blocks, 2), dtype=torch.float64,
+                        device=x.device)
+    fn = _build.function(
+        "posit_core_codec", "posit_quantize_prescaled_launch",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    _build.check(fn(x.data_ptr(), out.data_ptr(), s.data_ptr(),
+                    parts.data_ptr(), n, pc.n_bits, pc.es,
+                    pc.regime_max or 0, plan.reduce_blocks,
+                    plan.encode_blocks, _build.stream_ptr(x)),
+                 "posit_quantize_prescaled")
+    _build.count_launch("posit_quantize_prescaled", pc.n_bits)
+    return out, s
+
+
+def posit_sentinels(x: torch.Tensor, pc: P.PositConfig,
+                    pre_scale: bool = True) -> torch.Tensor:
+    """f32 -> int64 ``[nar, saturated]``: the words of ``x / s`` (``s``
+    the pow2 pre-scale, as ``posit_quantize_prescaled`` takes it) or of
+    ``x`` without pre-scale, counted as ``reliability.ece.word_flags``
+    classifies them, on x's device.  A ``meta`` tensor runs the plain
+    version."""
+    if x.device.type in ("cpu", "meta"):
+        return sentinels_plain(x, pc, pre_scale)
+    x = _core_args(x, pc, "posit_sentinels", (torch.float32,))
+    n = x.numel()
+    plan = _encode_plan(n, pre_scale)
+    parts = (torch.empty((plan.reduce_blocks, 2), dtype=torch.float64,
+                         device=x.device) if pre_scale else None)
+    counts = torch.empty((plan.encode_blocks, 2), dtype=torch.int64,
+                         device=x.device)
+    out = torch.empty(2, dtype=torch.int64, device=x.device)
+    fn = _build.function(
+        "posit_core_codec", "posit_sentinels_launch",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    _build.check(fn(x.data_ptr(), None if parts is None else parts.data_ptr(),
+                    counts.data_ptr(),
+                    out.data_ptr(), n, pc.n_bits, pc.es, pc.regime_max or 0,
+                    plan.reduce_blocks, plan.encode_blocks,
+                    _build.stream_ptr(x)), "posit_sentinels")
+    _build.count_launch("posit_sentinels", pc.n_bits)
     return out

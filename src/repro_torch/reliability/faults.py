@@ -313,7 +313,8 @@ def corrupt(x, cfg, plan: FaultPlan, key: int, step: int, salt: int = 0):
         s = _E._pow2_scale(xf)
     else:
         s = torch.ones((), dtype=torch.float32, device=xf.device)
-    pat = P.from_storage(_codec.posit_store(xf / s, pc), pc)
+    pat = P.from_storage(_codec.posit_store(P.flushed_quotient(xf, s), pc),
+                         pc)
     key = fold_in(key, salt)
     r = retry_index()
     if r:  # guard recompute: fresh draw (transient faults don't replay)
@@ -321,7 +322,8 @@ def corrupt(x, cfg, plan: FaultPlan, key: int, step: int, salt: int = 0):
     flipped, hit = flip_words(pat, pc, plan, key)
     if plan.record and r == 0:
         _count_injection(int(hit.sum()))
-    xq = _codec.posit_load(P.to_storage(flipped, pc), pc) * s
+    xq = P.flush_subnormals(
+        _codec.posit_load(P.to_storage(flipped, pc), pc) * s)
     return torch.where(hit, xq, xf).to(x.dtype)
 
 

@@ -35,7 +35,6 @@ import threading
 import torch
 
 from repro_torch.core import engine as _E
-from repro_torch.core import posit as _P
 from repro_torch.core.engine import EulerConfig
 from repro_torch.kernels import posit_codec as _codec
 
@@ -114,12 +113,16 @@ def quant_eps(cfg: EulerConfig) -> float:
 
 def _quantize_like(x, cfg: EulerConfig):
     """The operand value the base datapath consumes: pre-scaled posit
-    quantization for posit-word modes, plain f32 otherwise."""
+    quantization for posit-word modes, plain f32 otherwise.  On the card
+    the pre-scale is the cuda base's own (``posit_quantize_prescaled``);
+    the check recomputes it from the raw operand, so corrupted words of
+    the base show up in the residual."""
     xf = torch.as_tensor(x).to(torch.float32)
     if cfg.mode not in _POSIT_MODES:
         return xf
-    s = _E._pow2_scale(xf) if cfg.pre_scale else None
-    return _codec.posit_quantize(xf, cfg.posit, s)
+    if cfg.pre_scale:
+        return _codec.posit_quantize_prescaled(xf, cfg.posit)[0]
+    return _codec.posit_quantize(xf, cfg.posit)
 
 
 def _rhs_free(b_ndim: int, dimension_numbers):
@@ -164,16 +167,11 @@ def violation(out, aq, bq, dimension_numbers, cfg: EulerConfig,
 # --------------------------------------------------------------------------
 
 def sentinel_counts(out, cfg: EulerConfig):
-    """(nar, saturated) word counts of the output re-encoded to posit."""
-    from .ece import word_flags
-    pc = cfg.posit
-    xf = torch.as_tensor(out).to(torch.float32)
-    if cfg.pre_scale:
-        xf = xf / _E._pow2_scale(xf)
-    flags = word_flags(_P.from_storage(_codec.posit_store(xf, pc), pc), pc)
-    nar = int(flags["is_nar"].sum())
-    sat = int((flags["saturated"] & ~flags["is_zero"]
-               & ~flags["is_nar"]).sum())
+    """(nar, saturated) word counts of the output re-encoded to posit (one
+    host read of both)."""
+    nar, sat = _codec.posit_sentinels(
+        torch.as_tensor(out).to(torch.float32), cfg.posit,
+        cfg.pre_scale).tolist()
     return nar, sat
 
 

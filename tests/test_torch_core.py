@@ -69,10 +69,10 @@ def test_encode_from_float_bit_exact(jpc, tpc, rng):
         jnp.asarray(_patterns(jpc, rng).astype(np.uint32)), jpc))
     vals = np.sort(vals[np.isfinite(vals)]).astype(np.float64)
     mids = ((vals[1:] + vals[:-1]) / 2).astype(np.float32)
-    x = np.concatenate([vals.astype(np.float32), mids, _floats(rng)])
-    # the host flushes f32 subnormals (DAZ) under XLA, not under torch:
-    # they are held to the exact big-int oracle below instead
-    x = x[~((x != 0) & (np.abs(x) < np.float32(2.0 ** -126)))]
+    # subnormals included: XLA flushes them to zero, and so does the port
+    x = np.concatenate([vals.astype(np.float32), mids, _floats(rng),
+                        np.asarray([1e-40, -1e-40, 1.4e-45, -5e-39],
+                                   np.float32)])
     want = np.asarray(JP.encode_from_float(jnp.asarray(x), jpc))
     got = TP.encode_from_float(torch.from_numpy(x), tpc).numpy()
     np.testing.assert_array_equal(got, want.astype(np.int64))
@@ -80,10 +80,24 @@ def test_encode_from_float_bit_exact(jpc, tpc, rng):
 
 @pytest.mark.parametrize("jpc,tpc", FORMATS, ids=IDS)
 def test_encode_subnormals_match_bigint_oracle(jpc, tpc):
-    x = np.asarray([1e-40, -1e-40, 2.0 ** -140, -(2.0 ** -127)], np.float32)
-    got = TP.encode_from_float(torch.from_numpy(x), tpc).numpy()
-    want = [JP.np_encode(float(v), jpc) for v in x]
-    np.testing.assert_array_equal(got, np.asarray(want, np.int64))
+    """Subnormal f32 and bf16 inputs encode to 0 and quantize to 0 as the
+    JAX functions give them under XLA's flush (the exact big-int oracle
+    ``np_encode`` would give +-minpos: it knows no flush)."""
+    x = np.asarray([1e-40, -1e-40, 2.0 ** -140, -(2.0 ** -127), 1.4e-45,
+                    -1.1754942e-38], np.float32)
+    assert [JP.np_encode(float(v), jpc) for v in x[:2]] == [
+        1, (1 << jpc.n_bits) - 1]
+    for jdt, tdt in ((jnp.float32, torch.float32),
+                     (jnp.bfloat16, torch.bfloat16)):
+        jx = jnp.asarray(x).astype(jdt)
+        tx = torch.from_numpy(x).to(tdt)
+        want = np.asarray(JP.encode_from_float(jx, jpc)).astype(np.int64)
+        np.testing.assert_array_equal(
+            TP.encode_from_float(tx, tpc).numpy(), want)
+        # in bf16 -1.1754942e-38 rounds to -2^-126, a normal value
+        assert not want[:-1].any()
+        np.testing.assert_array_equal(TP.quantize(tx, tpc).numpy(),
+                                      np.asarray(JP.quantize(jx, jpc)))
 
 
 @pytest.mark.parametrize("jpc,tpc", FORMATS, ids=IDS)

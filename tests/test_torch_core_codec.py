@@ -7,12 +7,14 @@ and the six call sites routed through them.
   f32 and bf16, f32 edge values and seeded floats encoded and quantized,
   the uint8 / int16 / int32 storage words, and the JAX call sites
   (``cache_encode`` / ``cache_decode``, the guard's ``_quantize_like``).
-  XLA's CPU runtime flushes subnormal inputs to zero, so where the input
-  is subnormal the words are held to the JAX package's big-int oracle
-  ``np_encode`` instead (+-minpos, as on the card).
+  Subnormal inputs included: XLA flushes them to zero, on its CPU runtime
+  as on a TPU, and so does the port (a subnormal encodes to 0, and a
+  product ``q * s`` that goes subnormal is a signed 0).
 * A spy: each call site (the KV-cache write and read, paged decode's
   gather reference, the guard's quantize check and sentinels, fault
-  injection, ``out_quant``) goes through its entry.
+  injection, ``out_quant``) goes through its entry.  The guard's two
+  fused entries (``posit_quantize_prescaled``, ``posit_sentinels``) are
+  held in ``test_torch_guard_kernels.py``.
 * On a card (``cuda`` marker; skips here): each entry bit for bit against
   its plain version.  This file imports JAX inside a fixture only, so it
   runs on a machine with torch alone:
@@ -122,9 +124,11 @@ def test_load_matches_jax_decode(J, fmt):
 @pytest.mark.parametrize("fmt", FORMATS, ids=str)
 def test_store_and_quantize_match_jax(J, fmt):
     """``posit_store`` against JAX's ``to_storage(encode_from_float(x))``,
-    ``posit_quantize`` against ``quantize(x / s) * s`` (s the pow2 scale,
-    and none), on seeded floats and the edge values; subnormal inputs
-    against the big-int oracle."""
+    ``posit_quantize`` against ``quantize(x)`` and ``quantize_plain``
+    (the guard entry's values) against ``quantize(x / s) * s`` (s the pow2
+    scale), on seeded floats and the edge values; subnormal inputs, f32
+    and bf16, and quotients and products that go subnormal, against the
+    JAX functions (XLA's flush: 0 and signed 0)."""
     tpc, jpc = _pcs(J, fmt)
     x = _floats(np.random.default_rng(7))
     xt = torch.from_numpy(x.copy())
@@ -135,26 +139,35 @@ def test_store_and_quantize_match_jax(J, fmt):
     m = (1 << fmt[0]) - 1
     assert ((got.numpy().astype(np.int64) & m)
             == (want.astype(np.int64) & m)).all()
-    sub = TPC.posit_store(torch.from_numpy(SUBNORMALS.copy()), tpc)
-    oracle = [J.JP.np_encode(float(v), jpc) for v in SUBNORMALS]
-    assert (sub.numpy().astype(np.int64) & m).tolist() == oracle
-    assert oracle == [1 if v > 0 else m for v in SUBNORMALS]   # +-minpos
+    for tdt, jdt in ((torch.float32, J.jnp.float32),
+                     (torch.bfloat16, J.jnp.bfloat16)):
+        sub = TPC.posit_store(torch.from_numpy(SUBNORMALS.copy()).to(tdt),
+                              tpc)
+        jsub = np.asarray(J.JP.to_storage(J.JP.encode_from_float(
+            J.jnp.asarray(SUBNORMALS).astype(jdt), jpc), jpc))
+        assert ((sub.numpy().astype(np.int64) & m).tolist()
+                == (jsub.astype(np.int64) & m).tolist())
+        # in bf16 1.1754942e-38 and -1.1754942e-38 round to +-2^-126
+        assert not sub.numpy().any() or tdt == torch.bfloat16
 
     s = TE._pow2_scale(xt[torch.isfinite(xt)])
     js = J.jnp.float32(float(s))
-    for st, sj in ((s, js), (None, None)):
-        got = TPC.posit_quantize(xt, tpc, st).numpy()
-        jx = J.jnp.asarray(x)
-        want = (J.JP.quantize(jx, jpc) if sj is None
-                else J.JP.quantize(jx / sj, jpc) * sj)
-        assert _same(got, np.asarray(want)) == 0
-    # a quotient x / s below 2^-126 encodes to minpos, times s
-    tiny = torch.tensor([3e-39, -3e-39, 1e-45], dtype=torch.float32)
-    q = TPC.posit_quantize(tiny * 2.0 ** 20, tpc,
-                           torch.tensor(2.0 ** 20)).numpy()
-    minpos = float(np.float32(J.JP.np_decode(1, jpc)))   # f32-rounded
-    assert q.tolist() == [minpos * 2.0 ** 20, -minpos * 2.0 ** 20,
-                          minpos * 2.0 ** 20]
+    jx = J.jnp.asarray(x)
+    got = TPC.posit_quantize(xt, tpc).numpy()
+    assert _same(got, np.asarray(J.JP.quantize(jx, jpc))) == 0
+    got = TPC.quantize_plain(xt, tpc, s).numpy()
+    assert _same(got, np.asarray(J.JP.quantize(jx / js, jpc) * js)) == 0
+    # quotients x / s below 2^-126 (XLA flushes them: word 0), and
+    # products q * s below it (XLA flushes them: a signed 0)
+    tiny = np.array([3e-39, -3e-39, 1e-45, 1.0, -1.0, 2.0 ** -100],
+                    np.float32)
+    for sv in (2.0 ** 20, 2.0 ** -40, 1e-30):
+        got = TPC.quantize_plain(torch.from_numpy(tiny * np.float32(sv)),
+                                 tpc, torch.tensor(sv)).numpy()
+        sj = J.jnp.float32(sv)
+        want = np.asarray(J.JP.quantize(J.jnp.asarray(tiny * np.float32(sv))
+                                        / sj, jpc) * sj)
+        assert _same(got, want) == 0, (sv, got, want)
 
 
 @pytest.mark.parametrize("cache_dtype", ["uint8", "uint16", "uint32"])
@@ -219,7 +232,8 @@ def test_the_call_sites_go_through_the_entries(monkeypatch):
             return inner(*args, **kw)
         monkeypatch.setattr(TPC, name, wrapped)
 
-    for name in ("posit_store", "posit_load", "posit_quantize"):
+    for name in ("posit_store", "posit_load", "posit_quantize",
+                 "posit_quantize_prescaled", "posit_sentinels"):
         spy(name)
 
     def calls(fn):
@@ -237,8 +251,11 @@ def test_the_call_sites_go_through_the_entries(monkeypatch):
     assert calls(lambda: TL.cache_decode(words, torch.bfloat16, pc)) == [
         "posit_load"]
     assert calls(lambda: TPD.decode_words(words, pc)) == ["posit_load"]
-    assert calls(lambda: TG._quantize_like(x, cfg)) == ["posit_quantize"]
-    assert calls(lambda: TG.sentinel_counts(x, cfg)) == ["posit_store"]
+    assert calls(lambda: TG._quantize_like(x, cfg)) == [
+        "posit_quantize_prescaled"]
+    assert calls(lambda: TG._quantize_like(
+        x, cfg.replace(pre_scale=False))) == ["posit_quantize"]
+    assert calls(lambda: TG.sentinel_counts(x, cfg)) == ["posit_sentinels"]
     plan = TF.FaultPlan(rate=0.5)
     assert calls(lambda: TF.corrupt(x, cfg, plan, 1, 0)) == [
         "posit_store", "posit_load"]
@@ -309,13 +326,10 @@ def check_core_codec_on_card(dev: torch.device) -> None:
         for dt in (torch.float32, torch.bfloat16):
             assert same(TPC.posit_load(words, pc, dt),
                         TPC.load_plain(words, pc, dt))
-        s = TE._pow2_scale(x[torch.isfinite(x)])
-        for si in (s, None):
-            assert same(TPC.posit_quantize(x, pc, si),
-                        TPC.quantize_plain(x, pc, si))
+        assert same(TPC.posit_quantize(x, pc), TPC.quantize_plain(x, pc))
         m = x[:4096].reshape(64, 64)
-        assert same(TPC.posit_quantize(m.t(), pc, s),
-                    TPC.quantize_plain(m.t(), pc, s))
+        assert same(TPC.posit_quantize(m.t(), pc),
+                    TPC.quantize_plain(m.t(), pc))
         assert torch.equal(TPC.posit_store(m[:, ::3], pc),
                            TPC.store_plain(m[:, ::3], pc))
     with pytest.raises(ValueError):

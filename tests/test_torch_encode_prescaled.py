@@ -107,7 +107,7 @@ def _inputs(kind: str) -> list[np.ndarray]:
 
 def _mean_lg(x: np.ndarray) -> float:
     ax = np.abs(x.astype(np.float64))
-    nz = ax > 0
+    nz = ax >= 2.0 ** -126
     return float(np.log2(ax[nz]).mean()) if nz.any() else 0.0
 
 
@@ -204,9 +204,9 @@ def _reduce_partials(x: torch.Tensor, head: int = 0):
     """The reduce launch, emulated: its per-block (f64 sum, int64 count)
     partials."""
     ax = x.reshape(-1).to(torch.float32).abs()
-    nz = (ax > 0).numpy()
-    lg = torch.where(ax > 0, torch.log2(torch.clamp(ax, min=1e-38)),
-                     torch.zeros(())).numpy()
+    normal = ax >= 2.0 ** -126      # XLA's flush: subnormals do not count
+    nz = normal.numpy()
+    lg = torch.where(normal, torch.log2(ax), torch.zeros(())).numpy()
     n = ax.numel()
     plan = TPC._encode_plan(n)
 
@@ -243,7 +243,9 @@ def _encode_scale(ps: np.ndarray, pc: np.ndarray) -> np.float32:
 
 
 def test_plan_constants_match_the_kernel():
-    src = CSRC.read_text()
+    # the geometry and the reduce launch live in the header that
+    # posit_encode.cu shares with posit_core_codec.cu's guard entries
+    src = CSRC.read_text() + (CSRC.parent / "posit_prescale.cuh").read_text()
     for name in ("ENC_THREADS", "RED_THREADS", "UNROLL", "BLOCKS_PER_SM"):
         m = re.search(rf"constexpr int {name} = (\d+);", src)
         assert m and int(m.group(1)) == getattr(TPC, name), name

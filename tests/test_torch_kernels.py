@@ -292,7 +292,8 @@ def test_cuda_backend_on_cpu_runs_plain_versions():
                                "posit_encode_prescaled": 0,
                                "posit_decode": 0, "posit_store": 0,
                                "posit_load": 0, "posit_quantize": 0,
-                               "logmac": 0,
+                               "posit_quantize_prescaled": 0,
+                               "posit_sentinels": 0, "logmac": 0,
                                "logmac_small": 0, "logmac_mma": 0,
                                "logmac_pieces": 0, "logmac_tile": 0,
                                "paged_flash_decode": 0}

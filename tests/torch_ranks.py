@@ -103,6 +103,23 @@ def l21b(width: int = 16, backend: str = "lax_ref"):
 # collectives and group statistics (test_torch_collectives_mp.py)
 # --------------------------------------------------------------------------
 
+def subnormal_stats_rank(rank, world, x):
+    """``x`` [world, m] with subnormal values: the group's pow2 scale, the
+    split encode's plain version (B-P16) and logfxp's frac exponent of
+    this rank's row (test_torch_subnormal_flush.py)."""
+    from repro_torch.core import engine as E
+    from repro_torch.core import logmult as LM
+    from repro_torch.core.posit import BPOSIT16
+    from repro_torch.kernels import posit_codec as PC
+    g = dist.group.WORLD
+    xl = torch.from_numpy(x[rank:rank + 1])
+    out = {"scale": E._pow2_scale(xl, g),
+           "frac_exp": LM.fxp_frac_exp(xl, 8, g)}
+    out["words"], out["words_scale"] = PC.encode_prescaled_plain(
+        xl, BPOSIT16, True, g)
+    return out
+
+
 def collectives_rank(rank, world, x, y):
     """``x`` [world, n]: compressed psum/pmean of this rank's row.  ``y``
     [world, m] with rows at rank-dependent scales: the group statistics
